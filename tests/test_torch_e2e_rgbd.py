@@ -1,0 +1,281 @@
+"""The port's RGB-D slice as a whole, against the reference on the scene of
+tests/test_e2e_rgbd.py (CPU), plus the port's import hygiene, its refusals
+and the state carried across between the two packages."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from _torch_port import jnp_dict
+from orb_slam2_e_tpu.models.system import (SlamSystem as JSys,
+                                           SystemConfig as JCfg,
+                                           Sensor as JSensor)
+from orb_slam2_e_tpu.ops import camera as jcam
+from orb_slam2_e_tpu.ops import orb as jorb
+from orb_slam2_e_tpu.utils import synthetic as jsyn
+from orb_slam2_e_tpu.utils import trajectory as jtraj
+from orb_slam2_e_tpu_torch.models.system import (SlamSystem, SystemConfig,
+                                                 Sensor, TrackState)
+from orb_slam2_e_tpu_torch.ops.camera import Camera
+from orb_slam2_e_tpu_torch.utils import convert
+from orb_slam2_e_tpu_torch.utils import trajectory as ttraj
+from orb_slam2_e_tpu_torch.utils.synthetic import (SyntheticScene,
+                                                   orbit_trajectory,
+                                                   so3_exp_np)
+
+pytestmark = pytest.mark.e2e
+
+# the reference's own e2e gates (tests/test_e2e_rgbd.py)
+ATE_MAX = 0.08            # metres, SE3-aligned
+# Port vs reference camera centres on frames both tracked. The two runs
+# start from equal images but round apart (pyramid resize, f32 sums, the
+# bf16 Schur product of local BA). The reference's local BA is itself
+# chaotic on this scene: a 1-ulp change of its input points moves its free
+# keyframes by up to 0.028 m, and the port's spread is the same. So a frame
+# right after such a BA may differ by a few centimetres while the typical
+# frame agrees to millimetres: the median is held to 0.02 m, every frame
+# to 0.05 m.
+CENTER_MEDIAN_ATOL = 0.02     # metres
+CENTER_MAX_ATOL = 0.05        # metres
+KF_COUNT_SLACK = 1
+
+SCENE = dict(n_points=500, seed=2, width=480, height=360, fx=400, fy=400,
+             cx=240, cy=180)
+CAM = dict(fx=400, fy=400, cx=240, cy=180, bf=40.0, width=480, height=360)
+CFG = dict(max_keyframes=32, max_points=8192, n_features=600, n_levels=4,
+           max_frames_between_kf=4, pipeline=False, loop_closing=False)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _centre(pose):
+    if pose is None:
+        return None
+    R, t = (np.asarray(x, np.float64) for x in pose)
+    return -R.T @ t
+
+
+@pytest.fixture(scope="module")
+def runs():
+    scene = SyntheticScene(**SCENE)
+    poses, centers = orbit_trajectory(n_frames=12, radius=0.9, forward=0.04)
+    frames = [(scene.render(R, t), scene.depth_map(R, t)) for R, t in poses]
+    sj = JSys(jcam.Camera.create(**CAM), JCfg(**CFG), JSensor.RGBD)
+    st = SlamSystem(Camera.create(**CAM), SystemConfig(**CFG), Sensor.RGBD,
+                    device="cpu")
+    out = {"jax": (sj, []), "torch": (st, [])}
+    for k, (img, depth) in enumerate(frames):
+        for s, cen in out.values():
+            cen.append(_centre(s.track_rgbd(img, depth, k / 30.0)))
+    return out, centers
+
+
+def test_port_tracks_all_frames(runs):
+    out, centers = runs
+    st, cen = out["torch"]
+    assert sum(c is not None for c in cen) >= len(centers) - 1
+    assert st.get_tracking_state() == TrackState.OK
+
+
+def test_port_metric_scale_ate(runs):
+    out, centers = runs
+    st, _ = out["torch"]
+    ts, Rwc, twc = st.get_trajectory()
+    assert np.isfinite(twc).all() and np.isfinite(Rwc).all()
+    err = ttraj.ate_rmse(twc, centers[-len(twc):], with_scale=False)
+    assert err < ATE_MAX, err
+
+
+def test_port_agrees_with_reference(runs):
+    out, _ = runs
+    (sj, cj), (st, ct) = out["jax"], out["torch"]
+    both = [(a, b) for a, b in zip(cj, ct) if a is not None and b is not None]
+    assert len(both) >= len(cj) - 1
+    d = np.array([np.linalg.norm(a - b) for a, b in both])
+    assert np.median(d) < CENTER_MEDIAN_ATOL, d
+    assert d.max() < CENTER_MAX_ATOL, d
+    assert abs(st.n_keyframes - sj.n_keyframes) <= KF_COUNT_SLACK
+    assert abs(int(st.map.kf_valid.sum())
+               - int(np.asarray(sj.map.kf_valid).sum())) <= KF_COUNT_SLACK
+
+
+def test_convert_map_round_trip_bit_for_bit(runs):
+    out, _ = runs
+    sj, _ = out["jax"]
+    j = jnp_dict(sj.map)
+    t = convert.to_numpy(convert.map_state_from_numpy(j, "cpu"))
+    assert t.keys() == j.keys()
+    for k in j:
+        assert t[k].dtype == j[k].dtype and t[k].shape == j[k].shape, k
+        np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+    for name, arrays in (("camera", jnp_dict(sj.cam)),
+                         ("frame", jnp_dict(sj.last_frame))):
+        back = convert.to_numpy(getattr(convert, f"{name}_from_numpy")(
+            arrays, "cpu"))
+        for k in arrays:
+            assert back[k].dtype == arrays[k].dtype, (name, k)
+            np.testing.assert_array_equal(back[k], arrays[k],
+                                          err_msg=f"{name}.{k}")
+
+
+def test_savers_and_tracked_points_match_reference(runs, tmp_path):
+    """The reference's end state carried into a fresh port system: the
+    TUM savers write the same poses and the tracked landmark ids agree."""
+    out, _ = runs
+    sj, _ = out["jax"]
+    st = SlamSystem(Camera.create(**CAM), SystemConfig(**CFG), Sensor.RGBD,
+                    device="cpu")
+    st.map = convert.map_state_from_numpy(jnp_dict(sj.map), "cpu")
+    st.last_frame = convert.frame_from_numpy(jnp_dict(sj.last_frame), "cpu")
+    st.trajectory = [(ts, None if p7 is None else
+                      torch.from_numpy(np.array(p7)))
+                     for ts, p7 in sj.trajectory]
+    for name in ("save_trajectory_tum", "save_keyframe_trajectory_tum"):
+        getattr(sj, name)(tmp_path / f"j_{name}.txt")
+        getattr(st, name)(tmp_path / f"t_{name}.txt")
+        j = np.loadtxt(tmp_path / f"j_{name}.txt")
+        t = np.loadtxt(tmp_path / f"t_{name}.txt")
+        assert j.shape == t.shape and len(j) >= 2, name
+        # timestamps and positions through the same f32 ops; quaternions
+        # through numpy float64 in the port, jax float32 in the reference
+        np.testing.assert_allclose(t, j, atol=2e-6, err_msg=name)
+    np.testing.assert_array_equal(st.get_tracked_map_points(),
+                                  sj.get_tracked_map_points())
+    assert len(st.get_tracked_map_points()) > 50
+
+
+def test_frame_build_matches_reference():
+    """Depth lookup (with the depth-edge guard) and frame build from the
+    same extractor output: integer fields equal, floats to f32 rounding."""
+    from orb_slam2_e_tpu.models import frame as jframe
+    from orb_slam2_e_tpu_torch.models import frame as tframe
+    scene = SyntheticScene(**SCENE)
+    (R, t), = orbit_trajectory(n_frames=1)[0]
+    img, depth = scene.render(R, t), scene.depth_map(R, t)
+    cam_j = jcam.Camera.create(k1=0.05, p1=1e-3, **CAM)
+    f = jorb.OrbExtractor(600, 1.2, 4, use_pallas=False)(jnp.asarray(img))
+    d_j = jframe.sample_depth_at(jnp.asarray(depth), f.uv, 1.0)
+    fr_j = jnp_dict(jframe.frame_from_features(cam_j, f, d_j))
+    ft = convert.features_from_numpy(jnp_dict(f), "cpu")
+    cam_t = convert.camera_from_numpy(jnp_dict(cam_j), "cpu")
+    d_t = tframe.sample_depth_at(torch.from_numpy(depth), ft.uv, 1.0)
+    np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
+    assert (np.asarray(d_j) > 0).sum() > 200
+    fr_t = convert.to_numpy(tframe.frame_from_features(cam_t, ft, d_t))
+    for k in fr_j:
+        assert fr_t[k].dtype == fr_j[k].dtype, k
+        if fr_j[k].dtype.kind == "f":
+            np.testing.assert_allclose(fr_t[k], fr_j[k], rtol=0, atol=1e-3,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(fr_t[k], fr_j[k], err_msg=k)
+
+
+def test_convert_features_round_trip():
+    img = np.random.RandomState(0).randint(0, 256, (96, 128)).astype(
+        np.uint8)
+    f = jnp_dict(jorb.OrbExtractor(200, 1.2, 2, use_pallas=False)(
+        jnp.asarray(img)))
+    back = convert.to_numpy(convert.features_from_numpy(f, "cpu"))
+    for k in f:
+        assert back[k].dtype == f[k].dtype, k
+        np.testing.assert_array_equal(back[k], f[k], err_msg=k)
+
+
+def test_convert_rejects_missing_fields():
+    with pytest.raises(KeyError):
+        convert.camera_from_numpy({"fx": np.float32(1.0)}, "cpu")
+
+
+def test_import_and_one_frame_leave_jax_out(tmp_path):
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import orb_slam2_e_tpu_torch.models.system as S\n"
+        "from orb_slam2_e_tpu_torch.ops.camera import Camera\n"
+        "from orb_slam2_e_tpu_torch.utils.synthetic import SyntheticScene, "
+        "orbit_trajectory\n"
+        "scene = SyntheticScene(n_points=300, seed=1, width=160, height=120,"
+        " fx=130, fy=130, cx=80, cy=60)\n"
+        "(R, t), = orbit_trajectory(n_frames=1)[0]\n"
+        "cam = Camera.create(fx=130, fy=130, cx=80, cy=60, bf=40.0, "
+        "width=160, height=120)\n"
+        "s = S.SlamSystem(cam, S.SystemConfig(pipeline=False, "
+        "loop_closing=False, n_features=300, n_levels=2, max_keyframes=8, "
+        "max_points=1024), S.Sensor.RGBD, device='cpu')\n"
+        "s.track_rgbd(scene.render(R, t), scene.depth_map(R, t), 0.0)\n"
+        "assert s.frame_id == 0\n"
+        "print('jax' in sys.modules, any(m.startswith('orb_slam2_e_tpu.') "
+        "or m == 'orb_slam2_e_tpu' for m in sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-2:] == ["False", "False"], res.stdout
+
+
+@pytest.mark.parametrize("kind", ["mono", "stereo", "loop_closing",
+                                  "deformable", "pipeline", "reloc_test",
+                                  "no_mapping"])
+def test_refuses_what_is_not_ported(kind):
+    cfg = dict(pipeline=False, loop_closing=False)
+    sensor = Sensor.RGBD
+    if kind == "mono":
+        sensor = Sensor.MONOCULAR
+    elif kind == "stereo":
+        sensor = Sensor.STEREO
+    else:
+        field, val = {"loop_closing": ("loop_closing", True),
+                      "deformable": ("deformable", True),
+                      "pipeline": ("pipeline", True),
+                      "reloc_test": ("reloc_test_all_frames", True),
+                      "no_mapping": ("mapping", False)}[kind]
+        cfg[field] = val
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SlamSystem(Camera.create(**CAM), SystemConfig(**cfg), sensor,
+                   device="cpu")
+
+
+def test_lost_frame_refuses_relocalization():
+    st = SlamSystem(Camera.create(**CAM), SystemConfig(**CFG), Sensor.RGBD,
+                    device="cpu")
+    st.state = TrackState.LOST
+    st.frame_id = 3
+    blank = np.zeros((CAM["height"], CAM["width"]), np.uint8)
+    with pytest.raises(NotImplementedError, match="relocalization"):
+        st.track_rgbd(blank, blank.astype(np.float32), 0.1)
+
+
+def test_synthetic_scene_matches_reference():
+    kw = dict(n_points=300, seed=4, width=160, height=120, fx=130, fy=130,
+              cx=80, cy=60)
+    pj, cj = jsyn.orbit_trajectory(n_frames=5, radius=0.8, forward=0.04)
+    pt, ct = orbit_trajectory(n_frames=5, radius=0.8, forward=0.04)
+    np.testing.assert_allclose(ct, np.asarray(cj), atol=1e-6)
+    sj, st = jsyn.SyntheticScene(**kw), SyntheticScene(**kw)
+    for (Rj, tj), (Rt, tt) in zip(pj, pt):
+        np.testing.assert_allclose(Rt, np.asarray(Rj), atol=1e-6)
+        np.testing.assert_allclose(tt, np.asarray(tj), atol=1e-6)
+        R, t = np.asarray(Rj), np.asarray(tj)
+        np.testing.assert_array_equal(st.render(R, t), sj.render(R, t))
+        np.testing.assert_array_equal(st.depth_map(R, t), sj.depth_map(R, t))
+
+
+def test_trajectory_tools_match_reference(tmp_path):
+    rng = np.random.RandomState(7)
+    gt = rng.randn(20, 3)
+    est = gt * 1.3 + 0.01 * rng.randn(20, 3) + 0.5
+    for with_scale in (True, False):
+        assert np.isclose(ttraj.ate_rmse(est, gt, with_scale),
+                          jtraj.ate_rmse(est, gt, with_scale), rtol=1e-9)
+    # rotations near and far from the identity, through both writers
+    Rs = np.stack([so3_exp_np(w) for w in rng.randn(20, 3)])
+    ttraj.save_tum(tmp_path / "t.txt", np.arange(20) / 30.0, Rs, est)
+    jtraj.save_tum(tmp_path / "j.txt", np.arange(20) / 30.0, Rs, est)
+    # the port's quaternion is numpy float64, the reference's jax float32
+    np.testing.assert_allclose(np.loadtxt(tmp_path / "t.txt"),
+                               np.loadtxt(tmp_path / "j.txt"), atol=1e-6)
