@@ -1,10 +1,11 @@
-"""ORB-SLAM2-E on PyTorch and CUDA: the RGB-D main path.
+"""ORB-SLAM2-E on PyTorch and CUDA: the synchronous main path of the
+monocular, stereo and RGB-D sensors, with rigid relocalization.
 
 A second package beside `orb_slam2_e_tpu` (the JAX reference) with the same
 `ops/`, `models/`, `utils/` layout and the same function names wherever a
 counterpart exists. It imports torch and numpy only.
 
-The one hand-written kernel of the path, the fused FAST score + 3x3 NMS +
+The one hand-written kernel, the fused FAST score + 3x3 NMS +
 7x7 Gaussian blur (`ops/kernels.py`, source `csrc/fast_nms_blur.cu`), is
 CUDA C++ for sm_90a, built at first use. Everything else is torch ops.
 

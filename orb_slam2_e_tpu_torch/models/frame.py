@@ -69,6 +69,26 @@ def frame_from_features(cam: Camera, feats: OrbFeatures,
         depth=depth)
 
 
+def compact_frame(frame: Frame, priority: torch.Tensor, out_cap: int):
+    """Select `out_cap` features of a larger frame: priority rows first,
+    then the highest response (the monocular initializer's 2x-budget frames
+    reduced to the map's feature capacity). The key stays f32 and the sort
+    stable and descending, so ties fall as in `jnp.argsort(-key)`.
+
+    Returns (frame_out (out_cap rows), sel (out_cap,) source rows,
+    inv (F_in,) source row -> output row or -1)."""
+    F_in = frame.F
+    key = priority.to(torch.float32) * 1e6 + frame.response.to(torch.float32)
+    key = torch.where(frame.valid, key, torch.full_like(key, -1.0))
+    order = torch.argsort(-key, stable=True)
+    sel = order[:out_cap]
+    inv = torch.full((F_in,), INVALID, dtype=torch.int32, device=key.device)
+    inv[sel] = torch.arange(out_cap, dtype=torch.int32, device=key.device)
+    out = Frame(pose7=frame.pose7, **{
+        k: getattr(frame, k)[sel] for k in Frame._fields if k != "pose7"})
+    return out, sel, inv
+
+
 def sample_depth_at(depth_map: torch.Tensor, uv: torch.Tensor,
                     depth_factor: float = 1.0,
                     edge_rel_tol: float = 0.08) -> torch.Tensor:

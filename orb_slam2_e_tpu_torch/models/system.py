@@ -1,33 +1,49 @@
-"""System facade for the RGB-D main path.
+"""System facade: the public SLAM entry point.
 
-Port of `orb_slam2_e_tpu/models/system.py` for `Sensor.RGBD` on the
-synchronous frame loop (reference System::TrackRGBD): per frame, ORB
-extraction + depth lookup + frame build, the fused tracking step with one
-host read of its packed flags, the keyframe policy, and keyframe insertion
-followed by one mapping pass.
+Port of `orb_slam2_e_tpu/models/system.py` (reference System::Track
+{Monocular,Stereo,RGBD}) on the synchronous frame loop: per frame, ORB
+extraction and the frame build (depth lookup, or the stereo matcher, or
+nothing for mono), the tracking step with one host read of its packed
+flags, the keyframe policy, and keyframe insertion followed by one mapping
+pass. Mono bootstraps from two frames (`tracking.mono_init_*`); stereo and
+RGB-D from one. A LOST frame, on any sensor, is relocalized through BoW
+candidates, PnP RANSAC and the rigid S1/S2/S3 ladder, and the relocalization
+KPI protocol (`reloc_test_all_frames`) is supported.
 
 What this port refuses, with NotImplementedError naming the ROADMAP item:
-monocular and stereo sensors, loop closing, the deformable mode, the
-pipelined loop, the relocalization KPI protocol, localization-only mode,
-and a LOST frame that would need relocalization.
+loop closing, the deformable (FEM, non-rigid) mode, the pipelined loop,
+localization-only mode, and map save/load.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import os
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..ops import lie
+from ..ops import bow, lie, matching
+from ..ops import stereo as stereo_ops
 from ..ops.camera import Camera
 from ..ops.orb import OrbExtractor
+from ..utils.stats import RELOC_COLUMNS, RelocKpi, Statistics
 from .frame import Frame, frame_from_features, sample_depth_at
 from .map_state import MapState, INVALID
-from . import tracking as T
+from . import kf_database as KFDB
 from . import local_mapping as LM
+from . import relocalization as RELOC
+from . import tracking as T
+
+# the vocabulary bundled with the reference package, read by path (the
+# port never imports `orb_slam2_e_tpu`)
+BUNDLED_VOCAB = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "orb_slam2_e_tpu", "assets",
+    "vocab.npz")
 
 
 class TrackState(enum.Enum):
@@ -47,9 +63,8 @@ class Sensor(enum.Enum):
 
 @dataclasses.dataclass
 class SystemConfig:
-    """The reference's SystemConfig fields and defaults; the RGB-D slice
-    reads the tracking and mapping ones and refuses the options it does not
-    port (see `SlamSystem`)."""
+    """The reference's SystemConfig fields and defaults; the options the
+    port does not run are refused by `SlamSystem`."""
     max_keyframes: int = 256
     max_points: int = 24576
     n_features: int = 1000
@@ -62,9 +77,10 @@ class SystemConfig:
     deformable: bool = False
     el_type: int = 1
     loop_closing: bool = True
-    reloc_test_all_frames: bool = False
+    reloc_test_all_frames: bool = False  # force a relocalization attempt
+                                         # after every TP (KPI protocol)
     n_precision_frames: int = 2
-    stats_reloc_path: str = None
+    stats_reloc_path: str = None         # per-attempt StatsReloc rows
     min_frames_between_kf: int = 0
     max_frames_between_kf: int = 30
     min_init_matches: int = 100
@@ -72,7 +88,7 @@ class SystemConfig:
     local_ba: bool = True
     mapping: bool = True
     pipeline: bool = True
-    vocab_path: str = None
+    vocab_path: str = None               # None: the bundled vocabulary
 
 
 _REFUSED = (
@@ -80,29 +96,27 @@ _REFUSED = (
     ("deformable", True, "the deformable FEM mode (ROADMAP Q1 #15)"),
     ("pipeline", True, "the pipelined frame loop (ROADMAP Q1 #8: the "
                        "synchronous loop is the port's)"),
-    ("reloc_test_all_frames", True, "the relocalization KPI protocol "
-                                    "(ROADMAP Q1 #13)"),
     ("mapping", False, "localization-only mode (ROADMAP Q1 #13)"),
 )
 
 
 class SlamSystem:
-    """RGB-D SLAM facade. Typical use:
+    """SLAM facade. Typical use:
 
         sys = SlamSystem(cam, SystemConfig(pipeline=False,
                                            loop_closing=False),
-                         Sensor.RGBD, device="cuda")
-        for im, depth, ts in frames:
-            pose = sys.track_rgbd(im, depth, ts)   # (R, t) Tcw or None
+                         Sensor.MONOCULAR, device="cuda", seed=0)
+        for im, ts in frames:
+            pose = sys.track_monocular(im, ts)   # (R, t) Tcw or None
         sys.save_trajectory_tum("traj.txt")
+
+    `seed` seeds the system's `torch.Generator` (on `device`), which draws
+    every RANSAC sample, as the reference's `jax.random.PRNGKey(seed)`.
     """
 
     def __init__(self, cam: Camera, cfg: SystemConfig = SystemConfig(),
-                 sensor: Sensor = Sensor.MONOCULAR, *, device):
-        if sensor != Sensor.RGBD:
-            raise NotImplementedError(
-                f"{sensor.name} is not ported yet (ROADMAP Q1 #9 mono, "
-                "#11 stereo); the port runs Sensor.RGBD")
+                 sensor: Sensor = Sensor.MONOCULAR, *, device,
+                 seed: int = 0):
         for field, refused, what in _REFUSED:
             if getattr(cfg, field) == refused:
                 raise NotImplementedError(
@@ -114,6 +128,20 @@ class SlamSystem:
         self.extractor = OrbExtractor(
             cfg.n_features, cfg.scale_factor, cfg.n_levels,
             cfg.ini_th_fast, cfg.min_th_fast)
+        # mono initialization extracts a doubled feature budget (reference
+        # Tracking.cc:131-134); the init frames are compacted back to the
+        # map's capacity on success
+        self.init_extractor = (
+            OrbExtractor(2 * cfg.n_features, cfg.scale_factor, cfg.n_levels,
+                         cfg.ini_th_fast, cfg.min_th_fast)
+            if sensor == Sensor.MONOCULAR else self.extractor)
+        # the right image's extractor: the left one's capacity and pyramid
+        # with the extractor's default FAST thresholds, as the reference's
+        # stereo_depth_for_features builds it
+        self.right_extractor = (
+            OrbExtractor(self.extractor.capacity, cfg.scale_factor,
+                         cfg.n_levels)
+            if sensor == Sensor.STEREO else None)
         self.track_cfg = T.TrackConfig(
             scale_factor=cfg.scale_factor, n_levels=cfg.n_levels,
             th_depth=cfg.th_depth)
@@ -125,6 +153,8 @@ class SlamSystem:
             ba_fixed=min(dflt.ba_fixed, cfg.max_keyframes),
             ba_points=min(dflt.ba_points, cfg.max_points),
             ba_obs=min(dflt.ba_obs, 3 * cfg.max_points))
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(seed)
         self.reset()
 
     # ------------------------------------------------------------------ state
@@ -135,6 +165,8 @@ class SlamSystem:
                                    self.cfg.max_points, device=self.device)
         self.state = TrackState.NO_IMAGES_YET
         self.last_frame: Optional[Frame] = None
+        self.init_frame: Optional[Frame] = None
+        self.init_ts = 0.0
         self.velocity7: Optional[torch.Tensor] = None
         self.frame_id = -1
         self.last_kf_slot = -1
@@ -144,41 +176,84 @@ class SlamSystem:
         self.n_keyframes = 0
         self.trajectory = []      # (timestamp, pose7 tensor or None)
         self.stats = {"kf_inserted": 0, "points_created": 0,
-                      "points_culled": 0, "kf_culled": 0,
-                      "capacity_clips": 0, "clip_bits": 0}
+                      "points_culled": 0, "kf_culled": 0, "relocs": 0,
+                      "loops_closed": 0, "capacity_clips": 0, "clip_bits": 0}
+        # place recognition: the pretrained vocabulary when there is one,
+        # else one trained from the first keyframes (`_ensure_vocab`)
+        self.vocab = None
+        self.bow_db = None
+        self._load_pretrained_vocab()
+        self.kpi = RelocKpi(self.cfg.n_precision_frames)
+        self.reloc_stats = (Statistics(self.cfg.stats_reloc_path,
+                                       RELOC_COLUMNS)
+                            if self.cfg.stats_reloc_path else None)
+
+    def activate_localization_mode(self):
+        """Reference System::ActivateLocalizationMode."""
+        raise NotImplementedError(
+            "localization-only mode (ROADMAP Q1 #13) is not ported")
 
     def get_tracking_state(self) -> TrackState:
         return self.state
 
     # ------------------------------------------------------------ main entry
+    def _as_image(self, image) -> torch.Tensor:
+        return torch.as_tensor(image, device=self.device)
+
+    def track_monocular(self, image, timestamp: float):
+        """Reference System::TrackMonocular. image: (H, W) grey."""
+        assert self.sensor == Sensor.MONOCULAR
+        return self._track((self._as_image(image),), timestamp)
+
     def track_rgbd(self, image, depth, timestamp: float):
         """Reference System::TrackRGBD. image: (H, W) grey (uint8 or
         float32), depth: (H, W) raw depth (times depth_map_factor = m)."""
-        image = torch.as_tensor(image, device=self.device)
-        depth = torch.as_tensor(depth, device=self.device)
-        return self._track(image, depth, timestamp)
+        assert self.sensor == Sensor.RGBD
+        return self._track((self._as_image(image), self._as_image(depth)),
+                           timestamp)
+
+    def track_stereo(self, image_left, image_right, timestamp: float):
+        """Reference System::TrackStereo: depth from the stereo matcher on a
+        rectified pair."""
+        assert self.sensor == Sensor.STEREO
+        return self._track((self._as_image(image_left),
+                            self._as_image(image_right)), timestamp)
 
     # ------------------------------------------------------------- internals
-    def _make_frame(self, image, depth_map) -> Frame:
-        feats = self.extractor(image)
-        d = sample_depth_at(depth_map, feats.uv, self.cfg.depth_map_factor)
-        return frame_from_features(self.cam, feats, d)
+    def _make_frame_inputs(self, inputs) -> Frame:
+        """ORB extraction and the frame build for this sensor."""
+        if self.sensor == Sensor.STEREO:
+            img_l, img_r = inputs
+            feats = self.extractor(img_l)
+            depth = stereo_ops.stereo_depth_for_features(
+                self.cam, img_l, img_r, feats, self.right_extractor,
+                self.cfg.scale_factor)
+            return frame_from_features(self.cam, feats, depth)
+        if self.sensor == Sensor.RGBD:
+            feats = self.extractor(inputs[0])
+            d = sample_depth_at(inputs[1], feats.uv,
+                                self.cfg.depth_map_factor)
+            return frame_from_features(self.cam, feats, d)
+        ex = (self.init_extractor if self.state == TrackState.NOT_INITIALIZED
+              else self.extractor)
+        return frame_from_features(self.cam, ex(inputs[0]))
 
-    def _track(self, image, depth, timestamp: float):
+    def _track(self, inputs: tuple, timestamp: float):
         self.frame_id += 1
         if self.state == TrackState.NO_IMAGES_YET:
             self.state = TrackState.NOT_INITIALIZED
         if self.state == TrackState.NOT_INITIALIZED:
-            frame = self._make_frame(image, depth)
-            ok = self._initialize_depth(frame, timestamp)
+            frame = self._make_frame_inputs(inputs)
+            ok = self._initialize(frame, timestamp)
+            # on success _initialize stored the (compacted) last_frame
             self._record(timestamp, self.last_frame if ok else None)
             if not ok:
                 self.last_frame = frame
             return self._last_pose() if ok else None
-        return self._track_sync(image, depth, timestamp)
+        return self._track_sync(inputs, timestamp)
 
     def _track_step(self, frame: Frame):
-        """The fused tracking step and its one host read. Returns (frame,
+        """The tracking step and its one host read. Returns (frame,
         velocity7', [ok, n_inliers, ref_matches, clipped])."""
         have_vel = self.velocity7 is not None
         vel = self.velocity7 if have_vel else lie.pose7_identity(
@@ -188,40 +263,107 @@ class SlamSystem:
             vel, have_vel, max(self.last_kf_slot, 0))
         return frame, vel_new, flags.tolist()
 
-    def _track_sync(self, image, depth, timestamp: float):
-        """One tracking step + ONE packed device->host read per frame; the
-        host makes the state-machine decisions with current-frame truth."""
-        if self.state == TrackState.LOST:
-            raise NotImplementedError(
-                "tracking is LOST and relocalization is not ported "
-                "(ROADMAP Q1 #12-#13: BoW + PnP relocalization)")
-        frame = self._make_frame(image, depth)
-        frame, vel_new, flags = self._track_step(frame)
+    def _track_sync(self, inputs: tuple, timestamp: float):
+        """One tracking step and ONE packed device->host read per frame;
+        the host makes the state-machine decisions with current-frame
+        truth (reference Tracking::Track)."""
+        if self.last_frame is None:
+            # no previous frame to track against: relocalize directly
+            frame, ok = self._relocalize(self._make_frame_inputs(inputs))
+            self.last_frame = frame
+            if ok:
+                self.state = TrackState.OK
+                self.velocity7 = None
+                self.kpi.on_frame_tracked(self.frame_id)
+                self._record(timestamp, frame)
+                return self._last_pose()
+            self.state = TrackState.LOST
+            self.kpi.on_frame_lost(self.frame_id)
+            self._record(timestamp, None)
+            return None
+        frame, vel_new, flags = self._track_step(
+            self._make_frame_inputs(inputs))
         ok, n_in, self._ref_matches, clipped = (bool(flags[0]), flags[1],
                                                 flags[2], flags[3])
         if clipped:                       # local-map search hit its capacity
             self.stats["capacity_clips"] += 1
             self.stats["clip_bits"] |= 1 << 4
+        relocalized = False
+        if self.state == TrackState.LOST:
+            # once lost, only relocalization rescues (reference
+            # Tracking.cc:392)
+            frame, ok = self._relocalize(frame)
+            relocalized = ok
         if not ok:
             was_ok = self.state == TrackState.OK
             self.state = TrackState.LOST
             self.velocity7 = None
+            self.kpi.on_frame_lost(self.frame_id)
             if was_ok and self.n_keyframes <= 5:
                 self.reset()              # lost right after init: restart
             self._record(timestamp, None)
             self.last_frame = frame
             return None
+        tp = self.kpi.on_frame_tracked(self.frame_id)
         self.state = TrackState.OK
-        self.velocity7 = vel_new
+        # after a relocalization the step's velocity came from the failed
+        # pose: drop it and let the motion model rebuild
+        self.velocity7 = None if relocalized else vel_new
+        if self.cfg.reloc_test_all_frames and tp:
+            # KPI protocol: a TP was just registered; force LOST so the next
+            # frame relocalizes again (reference Tracking.cc:497-501)
+            self.state = TrackState.LOST
+            self.velocity7 = None
+            self._record(timestamp, None)
+            self.last_frame = frame
+            return None
         if self._need_new_keyframe(n_in):
             self._insert_keyframe(frame, timestamp)
         self._record(timestamp, frame)
         self.last_frame = frame
         return self._last_pose()
 
+    def _initialize(self, frame: Frame, timestamp: float) -> bool:
+        if self.sensor in (Sensor.RGBD, Sensor.STEREO):
+            return self._initialize_depth(frame, timestamp)
+        # monocular two-frame bootstrap (reference Tracking.cc:681-934)
+        m = self.cfg.min_init_matches
+        n_valid = int(frame.valid.sum())
+        if self.init_frame is None or n_valid < m:
+            self.init_frame = frame if n_valid >= m else None
+            self.init_ts = timestamp
+            return False
+        midx, n_m = T.mono_init_match(self.track_cfg, self.init_frame, frame)
+        if int(n_m) < m:
+            self.init_frame = frame       # slide the reference forward
+            self.init_ts = timestamp
+            return False
+        # reduce the 2x-budget init frames to map capacity (matched first)
+        f_ref_c, f_cur_c, midx_c = T.mono_init_compact(
+            self.init_frame, frame, midx, self.extractor.capacity)
+        new_map, new_frame, success, n_good = T.mono_init_reconstruct(
+            self.gen, self.cam, self.track_cfg, self.map, f_ref_c, f_cur_c,
+            midx_c, self.init_ts, timestamp, m)
+        success, n_good = torch.stack([success.to(torch.int64),
+                                       n_good.to(torch.int64)]).tolist()
+        if not success:
+            return False
+        # refine the initial map with a small BA (reference
+        # GlobalBundleAdjustemnt(20), Tracking.cc:873)
+        self.map, _, _ = LM.local_ba(self.cam, self.map_cfg, new_map, 1)
+        self.state = TrackState.OK
+        self.last_kf_slot = 1
+        self.last_kf_frame_id = self.frame_id
+        self.n_keyframes = 2
+        self.velocity7 = None
+        self.last_frame = new_frame._replace(pose7=self.map.kf_pose7[1])
+        self.stats["kf_inserted"] += 2
+        self.stats["points_created"] += n_good
+        return True
+
     def _initialize_depth(self, frame: Frame, timestamp: float) -> bool:
-        """RGB-D initialization: the first frame with >= 200 features with
-        depth becomes KF0 and spawns landmarks (reference
+        """Stereo/RGB-D initialization: the first frame with >= 200
+        features with depth becomes KF0 and spawns landmarks (reference
         Tracking::StereoInitialization)."""
         if int((frame.valid & (frame.depth > 0)).sum()) < 200:
             return False
@@ -240,7 +382,8 @@ class SlamSystem:
     def _need_new_keyframe(self, n_inliers: int) -> bool:
         """Reference Tracking::NeedNewKeyFrame: c1a = too long since the
         last KF; c1b = min gap passed; c2 = tracking weak vs the reference
-        KF but alive."""
+        KF but alive. A fresh relocalization blocks insertion for
+        max_frames_between_kf frames once the map is large enough."""
         if self.n_keyframes >= self.cfg.max_keyframes - 2:
             return False
         if (self.frame_id < self.last_reloc_frame_id
@@ -254,8 +397,9 @@ class SlamSystem:
         return (c1a or c1b) and c2
 
     def _insert_keyframe(self, frame: Frame, timestamp: float):
-        """Keyframe insertion + one mapping pass, one packed host read. As
-        in the reference, the caller keeps its pre-insertion frame."""
+        """Keyframe insertion + one mapping pass, one packed host read, then
+        the place-recognition upkeep. As in the reference, the caller keeps
+        its pre-insertion frame."""
         slot = int(self.map.free_kf_slot())
         if slot < 0:                      # no free keyframe slot
             return
@@ -279,10 +423,151 @@ class SlamSystem:
         self.stats["kf_inserted"] += 1
         for victim in packed[3:]:
             if victim >= 0:
+                if self.bow_db is not None:
+                    self.bow_db = self.bow_db.erase(victim)
                 self.n_keyframes -= 1
                 self.stats["kf_culled"] += 1
         self.stats["points_created"] += n_new
         self.stats["points_culled"] += n_culled
+        self._ensure_vocab()
+        self._db_add(slot)
+
+    # ------------------------------------------------- place recognition
+    def _load_pretrained_vocab(self):
+        """Load the vocabulary npz (SystemConfig.vocab_path, else the one
+        bundled with the reference package); the reference loads ORBvoc
+        in the System constructor (System.cc:69-76)."""
+        path = self.cfg.vocab_path
+        if path is None and os.path.exists(BUNDLED_VOCAB):
+            path = BUNDLED_VOCAB
+        if path is None:
+            return
+        voc = bow.load_vocabulary(path, device=self.device)
+        if voc is not None:
+            self._set_vocab(voc)
+
+    def _set_vocab(self, voc: bow.Vocabulary):
+        self.vocab = voc
+        self.bow_db = KFDB.BowDatabase.create(
+            self.cfg.max_keyframes, voc.n_words, device=self.device)
+
+    def _ensure_vocab(self):
+        """Without a pretrained vocabulary: train one from the keyframes'
+        descriptors once there are enough, and backfill the database."""
+        if self.vocab is not None or self.n_keyframes < 4:
+            return
+        kf_ok = self.map.kf_valid.cpu().numpy()
+        desc = self.map.kf_desc.cpu().numpy()[kf_ok]
+        kp_ok = self.map.kf_kp_valid.cpu().numpy()[kf_ok]
+        corpus = desc.reshape(-1, 32)[kp_ok.reshape(-1)]
+        if len(corpus) < 2000:
+            return
+        self._set_vocab(bow.train_vocabulary(corpus, k=10, L=3, iters=4,
+                                             device=self.device))
+        for slot in np.where(kf_ok)[0]:
+            self._db_add(int(slot))
+
+    def _bow_vec(self, desc, valid):
+        return bow.bow_vector(self.vocab,
+                              bow.transform(self.vocab, desc, valid)[0],
+                              valid)
+
+    def _db_add(self, slot: int):
+        if self.vocab is None:
+            return
+        vec = self._bow_vec(self.map.kf_desc[slot],
+                            self.map.kf_kp_valid[slot])
+        self.bow_db = self.bow_db.add(slot, vec)
+
+    # ------------------------------------------------- relocalization
+    def _dual_optimize(self, frame: Frame, stage: int, th: int):
+        """One stage of the reference's dual optimization (Tracking.cc:
+        1951-2107) with its rigid branch only: PoseOptimization on the
+        frame's matches, accepted at >= th good matches (10 for S1/S2, 50
+        for S3). The non-rigid columns of the stats row read -1 and 0.0, as
+        the reference writes them outside the deformable mode.
+        Returns (frame, n_good), n_good = 0 when below th."""
+        st = self.reloc_stats
+        t0 = time.perf_counter()
+        frame_r, n_r = RELOC.optimize_frame_pose(self.cam, self.track_cfg,
+                                                 self.map, frame)
+        n_r = int(n_r)
+        if st:
+            st.add(f"nGoodR_S{stage}", n_r)
+            st.add(f"timeR_S{stage}", round(time.perf_counter() - t0, 6))
+            st.add(f"nGoodNR_S{stage}", -1)
+            st.add(f"timeNR_S{stage}", 0.0)
+        return frame_r, (n_r if n_r >= th else 0)
+
+    def _relocalize(self, frame: Frame):
+        """Reference Tracking::Relocalization: BoW candidates -> PnP
+        RANSAC per candidate -> full-map projection (>= 12 matches) -> the
+        S1/S2/S3 ladder, accepted at RELOC_GOOD. Each attempt logs a
+        StatsReloc row. Returns (frame, ok)."""
+        self._ensure_vocab()
+        if self.vocab is None:
+            return frame, False
+        st = self.reloc_stats
+        q = self._bow_vec(frame.desc, frame.valid)
+        cand, scores = KFDB.detect_relocalization_candidates(self.bow_db, q)
+        cand_ok = scores > 0
+        n_cand = int(cand_ok.sum())
+        if st:
+            st.add("Frame", self.frame_id)
+            st.add("KF_candidates", n_cand)
+        if n_cand == 0:
+            return self._reloc_failed(frame, stage=0)
+        t0 = time.perf_counter()
+        pose7, n_pnp, pid = RELOC.relocalize_candidates(
+            self.gen, self.cam, self.track_cfg, self.map, frame, cand,
+            cand_ok)
+        n_pnp = int(n_pnp)                # the attempt's one read of PnP
+        if st:
+            st.add("Inliers_PnP_R", n_pnp)
+            st.add("Time_PnP_R", round(time.perf_counter() - t0, 6))
+        if n_pnp < RELOC.MIN_BOW_MATCHES:
+            return self._reloc_failed(frame, stage=0)
+        # full-map projection from the PnP pose with TH_RELOC; >= 12 matches
+        # (the E-overload, PnPsolver.cc:364-396)
+        cand_frame, n_bound = RELOC.fullmap_search(
+            self.cam, self.track_cfg, self.map,
+            frame._replace(pose7=pose7, point_ids=pid), 15.0,
+            matching.TH_RELOC)
+        if int(n_bound) < RELOC.MIN_PNP_FULLMAP:
+            return self._reloc_failed(frame, stage=0)
+        # S1 on the PnP + projection matches, then S2/S3 widen by full-map
+        # projection (reference SearchByProjection(.., 10, 100) and
+        # (.., 3, 64), Tracking.cc:1997-2107)
+        best_frame, n_good = self._dual_optimize(cand_frame, stage=1, th=10)
+        stage = 1
+        for stg, radius, ham, th in ((2, 10.0, 100, 10), (3, 3.0, 64, 50)):
+            if n_good >= RELOC.RELOC_GOOD:
+                break
+            stage = stg
+            f2, _ = RELOC.fullmap_search(self.cam, self.track_cfg, self.map,
+                                         best_frame, radius, ham)
+            f3, n3 = self._dual_optimize(f2, stage=stg, th=th)
+            if n3 >= n_good:
+                best_frame, n_good = f3, n3
+        if n_good < RELOC.RELOC_GOOD:
+            return self._reloc_failed(frame, stage)
+        self.stats["relocs"] += 1
+        self.kpi.on_reloc_success(self.frame_id)
+        self.last_reloc_frame_id = self.frame_id
+        self.state = TrackState.OK
+        self._flush_reloc_stats(accepted=1, stage=stage)
+        return best_frame, True
+
+    def _reloc_failed(self, frame: Frame, stage: int):
+        self.kpi.on_reloc_fail()
+        self._flush_reloc_stats(accepted=0, stage=stage)
+        return frame, False
+
+    def _flush_reloc_stats(self, accepted: int, stage: int):
+        if self.reloc_stats:
+            self.reloc_stats.add("Stage", stage)
+            self.reloc_stats.add("Accepted", accepted)
+            self.reloc_stats.new_line()
 
     # ------------------------------------------------------------ trajectory
     def _record(self, timestamp, frame):
@@ -311,6 +596,12 @@ class SlamSystem:
         ts, R, t = self.get_trajectory()
         traj.save_tum(path, ts, R, t)
 
+    def save_trajectory_kitti(self, path):
+        """Reference System::SaveTrajectoryKITTI."""
+        from ..utils import trajectory as traj
+        _, R, t = self.get_trajectory()
+        traj.save_kitti(path, R, t)
+
     def save_keyframe_trajectory_tum(self, path):
         """Reference System::SaveKeyFrameTrajectoryTUM."""
         from ..utils import trajectory as traj
@@ -327,3 +618,14 @@ class SlamSystem:
             return np.zeros((0,), np.int32)
         pid = self.last_frame.point_ids.cpu().numpy()
         return pid[pid >= 0]
+
+    def save_map(self, path):
+        """Reference System::SaveMap (E-addition)."""
+        raise NotImplementedError("map save/load (ROADMAP Q1 #16) is not "
+                                  "ported")
+
+    def load_map(self, path):
+        """Reference Tracking::LoadMap."""
+        raise NotImplementedError("map save/load (ROADMAP Q1 #16) is not "
+                                  "ported")
+

@@ -1,8 +1,9 @@
 """Per-frame tracking: motion-model search, reference-keyframe fallback,
-local-map tracking, pose optimization and keyframe insertion.
+local-map tracking, pose optimization, keyframe insertion and the monocular
+two-view initialization.
 
-Port of the RGB-D path of `orb_slam2_e_tpu/models/tracking.py` (reference
-Tracking.cc). Searches are dense masked Hamming matrices
+Port of `orb_slam2_e_tpu/models/tracking.py` (reference Tracking.cc) but
+for localization-only mode (`track_frame_loc`, `track_motion_model_vo`). Searches are dense masked Hamming matrices
 (`ops/matching.py`). `track_frame_fused` keeps the reference's structure:
 both the motion-model and the reference-keyframe stage are computed and the
 outcome is selected with `torch.where`, so the step never waits on the
@@ -16,11 +17,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import lie, matching, pose_opt, scatter
+from ..ops import lie, matching, pose_opt, scatter, twoview
+from ..ops.ba import _nanmedian_mid
 from ..ops.camera import Camera
 from ..ops import camera as cam_ops
 from ..ops.orb import top_k
-from .frame import Frame, scale_invsigma2
+from .frame import Frame, compact_frame, scale_invsigma2
 from .map_state import MapState, INVALID
 
 _I32 = torch.int32
@@ -330,3 +332,94 @@ def insert_keyframe(cam: Camera, cfg: TrackConfig, state: MapState,
         slot, frame.pose7, frame_id, timestamp, frame.uvr, frame.octave,
         frame.angle, frame.valid, frame.desc, point_ids, parent=parent_kf)
     return state, frame._replace(point_ids=point_ids)
+
+
+# ---------------------------------------------------------------------------
+# Monocular initialization
+# ---------------------------------------------------------------------------
+
+def mono_init_match(cfg: TrackConfig, f_ref: Frame, f_cur: Frame):
+    """Windowed level-0 descriptor match for initialization (reference
+    ORBmatcher::SearchForInitialization, window 100, ratio 0.9). Returns
+    (match_idx (F_ref,) int32, n_matches)."""
+    idx, dist = matching.search_windowed(
+        matching.unpack_desc(f_ref.desc), matching.unpack_desc(f_cur.desc),
+        f_ref.uvr[:, :2], f_cur.uvr[:, :2],
+        f_ref.valid & (f_ref.octave == 0), f_cur.valid & (f_cur.octave == 0),
+        radius=100.0, max_dist=matching.TH_LOW, ratio=0.9,
+        angles=(f_ref.angle, f_cur.angle))
+    idx = matching.resolve_duplicates(idx, dist, f_cur.F)
+    return idx, (idx >= 0).sum()
+
+
+def mono_init_compact(f_ref: Frame, f_cur: Frame, midx, out_cap: int):
+    """Reduce the 2x-budget initializer frames (reference Tracking.cc:131-134)
+    to the map's feature capacity, matched pairs first, and remap the match
+    indices. Returns (f_ref', f_cur', midx')."""
+    ok_pair = midx >= 0
+    f_ref_c, ref_sel, _ = compact_frame(f_ref, ok_pair, out_cap)
+    cur_matched = scatter.mark(f_cur.F, torch.where(ok_pair, midx, 0),
+                               ok_pair)
+    f_cur_c, _, cur_inv = compact_frame(f_cur, cur_matched, out_cap)
+    m_old = midx[ref_sel]
+    has = m_old >= 0
+    midx_c = torch.where(has, cur_inv[torch.where(has, m_old, 0).long()],
+                         INVALID)
+    return f_ref_c, f_cur_c, midx_c
+
+
+def mono_init_reconstruct(gen, cam: Camera, cfg: TrackConfig,
+                          state: MapState, f_ref: Frame, f_cur: Frame,
+                          match_idx, ts_ref, ts_cur, min_good: int = 80,
+                          sets=None):
+    """Two-view reconstruction and, on success, the initial map: KF0 at the
+    identity, KF1 at [R|t], landmarks at the triangulated points scaled to
+    median depth 1 (reference Tracking::MonocularInitialization +
+    CreateInitialMapMonocular). `gen` draws the RANSAC sets; `sets`
+    ((sets_H, sets_F)) skips the draw.
+
+    Returns (state, f_cur', success, n_good)."""
+    ok_pair = match_idx >= 0
+    safe = torch.where(ok_pair, match_idx, 0).long()
+    uv1 = f_ref.uvr[:, :2]
+    uv2 = f_cur.uvr[safe][:, :2]
+    res = twoview.initialize_two_view(gen, uv1, uv2, ok_pair, cam.K,
+                                      sets=sets)
+    good = res.good & ok_pair
+    z = torch.where(good, res.points[:, 2],
+                    torch.full_like(res.points[:, 2], float("nan")))
+    scale = 1.0 / torch.clamp(_nanmedian_mid(z), min=1e-6)
+    pts = res.points * scale
+    pose0 = lie.pose7_identity(device=pts.device, dtype=pts.dtype)
+    pose1 = lie.pose7_pack(res.R, res.t * scale)
+
+    slots, alloc_ok = state.allocate_points(good)
+    ok = good & alloc_ok
+    dist = torch.linalg.norm(pts, dim=-1)
+    maxd = dist * cfg.scale_factor ** f_ref.octave.to(torch.float32)
+    mind = maxd / cfg.scale_factor ** (cfg.n_levels - 1)
+    normal = pts / torch.clamp(torch.linalg.norm(pts, dim=-1, keepdim=True),
+                               min=1e-9)
+    ms = scatter.masked_set
+    state = state._replace(
+        lm_xyz=ms(state.lm_xyz, slots, ok, pts),
+        lm_valid=ms(state.lm_valid, slots, ok, True),
+        lm_desc=ms(state.lm_desc, slots, ok, f_cur.desc[safe]),
+        lm_angle=ms(state.lm_angle, slots, ok, f_cur.angle[safe]),
+        lm_normal=ms(state.lm_normal, slots, ok, normal),
+        lm_min_dist=ms(state.lm_min_dist, slots, ok, mind),
+        lm_max_dist=ms(state.lm_max_dist, slots, ok, maxd),
+        lm_ref_kf=ms(state.lm_ref_kf, slots, ok, 0),
+        lm_first_seq=ms(state.lm_first_seq, slots, ok, 0),
+    )
+    pid_ref = torch.where(ok, slots, INVALID)
+    pid_cur = scatter.scatter_max(f_cur.F, safe, pid_ref, INVALID)
+    state = state.add_keyframe(0, pose0, 0, ts_ref, f_ref.uvr, f_ref.octave,
+                               f_ref.angle, f_ref.valid, f_ref.desc, pid_ref,
+                               parent=INVALID)
+    state = state.add_keyframe(1, pose1, 1, ts_cur, f_cur.uvr, f_cur.octave,
+                               f_cur.angle, f_cur.valid, f_cur.desc, pid_cur,
+                               parent=0)
+    f_cur = f_cur._replace(pose7=pose1, point_ids=pid_cur)
+    n_good = ok.sum()
+    return state, f_cur, res.success & (n_good >= min_good), n_good

@@ -17,6 +17,7 @@ import torch
 
 TH_HIGH = 95
 TH_LOW = 45
+TH_RELOC = 60          # full-map relocalization search
 HISTO_LENGTH = 30
 INVALID = -1
 BIG = 10 ** 6
@@ -101,6 +102,26 @@ def octave_range_mask(pred_octave: torch.Tensor, kp_octave: torch.Tensor,
     lo = pred_octave[:, None] + lo_off
     hi = pred_octave[:, None] + hi_off
     return (kp_octave[None, :] >= lo) & (kp_octave[None, :] <= hi)
+
+
+def search_windowed(bits_a, bits_b, uv_a, uv_b, valid_a, valid_b,
+                    radius, max_dist: int = TH_LOW, ratio: float = 0.9,
+                    angles=None):
+    """Windowed search a -> b (reference ORBmatcher::SearchForInitialization:
+    window, ratio test, rotation check). Returns (match_idx (Na,) int32 or
+    -1, dist (Na,) int32, BIG where unmatched)."""
+    dist = hamming_matrix(bits_a, bits_b)
+    mask = window_mask(uv_a, uv_b, radius)
+    mask &= valid_a[:, None] & valid_b[None, :]
+    best_idx, d1, d2 = masked_best2(dist, mask)
+    ok = (d1 <= max_dist) & (d1.to(torch.float32)
+                             < ratio * d2.to(torch.float32))
+    if angles is not None:
+        ang_a, ang_b = angles
+        ok = rotation_consistency_mask(
+            ang_a, ang_b[torch.clamp(best_idx, 0, bits_b.shape[0] - 1)], ok)
+    return (torch.where(ok, best_idx, INVALID).to(torch.int32),
+            torch.where(ok, d1, BIG))
 
 
 def resolve_duplicates(match_idx: torch.Tensor, dist: torch.Tensor,

@@ -1,11 +1,14 @@
-"""Trajectory export in TUM format and ATE evaluation, numpy only.
+"""Trajectory export/import in TUM and KITTI formats and ATE/RPE
+evaluation, numpy only.
 
-Port of the parts of `orb_slam2_e_tpu/utils/trajectory.py` the RGB-D path
-uses: the TUM writer (reference System::SaveTrajectoryTUM) and the ATE RMSE
-after Umeyama alignment.
+Port of `orb_slam2_e_tpu/utils/trajectory.py`: the TUM and KITTI writers
+(reference System::SaveTrajectoryTUM / SaveTrajectoryKITTI), the TUM
+reader, and ATE / RPE RMSE after Umeyama alignment.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
@@ -46,6 +49,29 @@ def save_tum(path, timestamps, R_wc, t_wc):
                     f"{q[i,1]:.7f} {q[i,2]:.7f} {q[i,3]:.7f} {q[i,0]:.7f}\n")
 
 
+def save_kitti(path, R_wc, t_wc):
+    """Write a 3x4 [R|t] row-major camera-to-world matrix per line."""
+    R = np.asarray(R_wc)
+    t = np.asarray(t_wc)
+    with open(path, 'w') as f:
+        for i in range(len(R)):
+            P = np.hstack([R[i], t[i][:, None]]).reshape(-1)
+            f.write(" ".join(f"{v:.9e}" for v in P) + "\n")
+
+
+def load_tum(path):
+    """-> (timestamps (N,), t_wc (N, 3), q_wxyz (N, 4))."""
+    rows = []
+    for line in Path(path).read_text().splitlines():
+        line = line.strip()
+        if not line or line.startswith('#'):
+            continue
+        rows.append([float(x) for x in line.split()][:8])
+    a = np.asarray(rows)
+    q = np.stack([a[:, 7], a[:, 4], a[:, 5], a[:, 6]], axis=1)  # -> wxyz
+    return a[:, 0], a[:, 1:4], q
+
+
 def umeyama_alignment(x: np.ndarray, y: np.ndarray, with_scale: bool = True):
     """Least-squares similarity y ~ s R x + t over (N, 3) point sets."""
     mu_x = x.mean(axis=0)
@@ -69,3 +95,15 @@ def ate_rmse(est_t: np.ndarray, gt_t: np.ndarray,
     s, R, t = umeyama_alignment(est_t, gt_t, with_scale)
     aligned = (s * (R @ est_t.T)).T + t
     return float(np.sqrt(((aligned - gt_t) ** 2).sum(axis=1).mean()))
+
+
+def rpe_rmse(R_est, t_est, R_gt, t_gt, delta: int = 1):
+    """Relative pose error RMSE (translation, metres) over frame pairs."""
+    errs = []
+    for i in range(len(t_est) - delta):
+        dt_e = R_est[i].T @ (t_est[i + delta] - t_est[i])
+        dR_g = R_gt[i].T @ R_gt[i + delta]
+        dt_g = R_gt[i].T @ (t_gt[i + delta] - t_gt[i])
+        e_t = dR_g.T @ (dt_e - dt_g)
+        errs.append(e_t @ e_t)
+    return float(np.sqrt(np.mean(errs))) if errs else 0.0

@@ -33,9 +33,20 @@ from orb_slam2_e_tpu_torch.utils.synthetic import (SyntheticScene,
 BA_SEEDS = [1, 2]
 BA_ATOL = 1e-3
 BA_COST_RTOL = 0.01
-# mapping pass: triangulation solves + 3+4 LM iterations from equal inputs
+# mapping pass: triangulation solves + 3+4 LM iterations from equal inputs.
+# The reference's local BA is chaotic on this window (ROADMAP Q3 #11): a
+# 1-ulp change of its input `lm_xyz` moves its own landmarks by 0.0016 /
+# 0.018 / 0.0017 m (seeds 0 / 1 / 2; 17 points beyond 1e-3 on seed 1), and
+# of `kf_pose7` by 0.0042 / 0.011 / 0.0080 m, while its keyframe poses move
+# by at most 7.9e-5. A per-point bound of 1e-3 therefore passes or fails by
+# the machine's rounding. Port vs reference here: keyframe poses 4.7e-5,
+# landmarks median 2.0e-5, worst 0.011 m (6 of 316 coordinates past 1e-3).
+MAP_POSE_ATOL = 1e-3          # valid keyframes, every pose entry
+MAP_XYZ_MEDIAN_ATOL = 1e-4    # valid landmarks, median |difference|
+MAP_XYZ_MAX_ATOL = 0.05       # valid landmarks, every coordinate (the
+                              # e2e bound CENTER_MAX_ATOL)
+# pre-BA stages: f32 rounding of equal computations
 MAP_XYZ_ATOL = 1e-3
-MAP_POSE_ATOL = 1e-3
 # one triangulation, before BA: both packages solve the 3x3 normal
 # equations in f32 (LAPACK in torch, XLA's LU in JAX). Against a float64
 # solve both err by up to 1e-3 of the coordinate (median 6e-5) at a
@@ -175,8 +186,9 @@ def test_mapping_pass_matches(jax_run):
     np.testing.assert_array_equal(t["kf_valid"], j["kf_valid"])
     np.testing.assert_array_equal(t["lm_valid"], j["lm_valid"])
     v = j["lm_valid"]
-    np.testing.assert_allclose(t["lm_xyz"][v], j["lm_xyz"][v],
-                               atol=MAP_XYZ_ATOL)
+    dxyz = np.abs(t["lm_xyz"][v] - j["lm_xyz"][v])
+    assert np.median(dxyz) <= MAP_XYZ_MEDIAN_ATOL, np.median(dxyz)
+    assert dxyz.max() <= MAP_XYZ_MAX_ATOL, dxyz.max()
     k = j["kf_valid"]
     np.testing.assert_allclose(t["kf_pose7"][k], j["kf_pose7"][k],
                                atol=MAP_POSE_ATOL)
