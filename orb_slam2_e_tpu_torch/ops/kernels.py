@@ -1,19 +1,20 @@
 """Hand-written CUDA kernel of the ORB front end, its plain torch twin, and
 its build.
 
-`fast_nms_blur` replaces the reference's Pallas kernel
+`fast_nms_blur_pyramid` replaces the reference's Pallas kernel
 `orb_slam2_e_tpu/ops/pallas_kernels.py::fast_nms_blur` with
 `csrc/fast_nms_blur.cu` (CUDA C++ for sm_90a, plain C entry point, loaded
-with ctypes). It computes, for one pyramid level, the FAST-9/16 V-score with
-the two-threshold bonus, 3x3 non-max suppression and the 7x7 sigma=2
-Gaussian blur — the function of the reference's XLA path
-(`orb.fast_score_map` + the NMS of `orb.detect_level` + `orb.gaussian_blur7`)
-over the whole image, border included.
+with ctypes). It computes, for every level of an image pyramid in one kernel
+launch, the FAST-9/16 V-score with the two-threshold bonus, 3x3 non-max
+suppression and the 7x7 sigma=2 Gaussian blur: the function of the
+reference's XLA path (`orb.fast_score_map` + the NMS of `orb.detect_level` +
+`orb.gaussian_blur7`) over the whole image, border included.
+`fast_nms_blur` is its one-level case.
 
-A tensor on the CPU goes to `fast_nms_blur_plain`; a CUDA tensor goes to the
-kernel or the call raises. Nothing falls back.
+Tensors on the CPU go to the plain versions; CUDA tensors go to the kernel
+or the call raises. Nothing falls back.
 
-The shared library is built at first use by nvcc into `build/` beside this
+A shared library is built at first use by nvcc into `build/` beside this
 package (`.gitignore` lists it), named by a hash of the source, so a changed
 source rebuilds and concurrent processes never load a half-written file.
 """
@@ -21,6 +22,7 @@ source rebuilds and concurrent processes never load a half-written file.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -35,7 +37,10 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "csrc", "fast_nms_blur.cu")
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+MAX_LEVELS = 16          # rows of the kernel's level table (csrc: MAX_LEVELS)
+# each level's slice of the packed outputs starts on a 128-byte line
+_OUT_ALIGN = 32          # float32 elements
 
 # FAST ring (same Bresenham radius-3 circle as orb.FAST_RING), (dx, dy)
 _RING = ((0, -3), (1, -3), (2, -2), (3, -1), (3, 0), (3, 1), (2, 2), (1, 3),
@@ -91,6 +96,20 @@ def fast_score_map(img: torch.Tensor, th_high: float, th_low: float,
             + torch.where(v > th_high, torch.full_like(v, 1e4), zero))
 
 
+def may_score(img: torch.Tensor, th_min: float) -> torch.Tensor:
+    """Plain twin of the kernel's exact early reject: False where the
+    V-score cannot exceed `th_min`. A 9-arc holds two neighbouring compass
+    positions (0, 4, 8, 12) of the ring, so the score is at most the best
+    over the four neighbour pairs of the smaller (negated) difference."""
+    n, e, s, w = (_shift2d(img, *_RING[k]) - img for k in (0, 4, 8, 12))
+    pairs = ((n, e), (e, s), (s, w), (w, n))
+    bright = functools.reduce(torch.maximum,
+                              [torch.minimum(a, b) for a, b in pairs])
+    dark = functools.reduce(torch.minimum,
+                            [torch.maximum(a, b) for a, b in pairs])
+    return torch.maximum(bright, -dark) > th_min
+
+
 def nms3x3(score: torch.Tensor) -> torch.Tensor:
     """Keep a score where it is >= all 8 edge-clamped neighbours."""
     is_max = torch.ones_like(score, dtype=torch.bool)
@@ -118,9 +137,15 @@ def gaussian_blur7(img: torch.Tensor) -> torch.Tensor:
 
 
 def fast_nms_blur_plain(img: torch.Tensor, th_high: float, th_low: float):
-    """Plain torch twin of the kernel: (NMS'd score (H, W), blur (H, W))."""
+    """Plain torch twin of the kernel's one-level case: (NMS'd score (H, W),
+    blur (H, W))."""
     return (nms3x3(fast_score_map(img, th_high, th_low)),
             gaussian_blur7(img))
+
+
+def fast_nms_blur_pyramid_plain(levels, th_high: float, th_low: float):
+    """Plain torch twin of the kernel: [(score, blur)] level by level."""
+    return [fast_nms_blur_plain(img, th_high, th_low) for img in levels]
 
 
 # ---------------------------------------------------------------------------
@@ -138,67 +163,148 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
 
 
+def compile_sources(sources):
+    """Compile each .cu of `sources` into a shared library under `build/`
+    (once per source hash), all nvcc processes started together. Returns
+    [(library path, what ptxas reported, '' where the library was there)]."""
+    jobs = []
+    for src in sources:
+        with open(src, "rb") as f:
+            tag = hashlib.sha256(
+                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        stem = os.path.splitext(os.path.basename(src))[0]
+        so_path = os.path.join(_BUILD_DIR, f"lib{stem}_{tag}.so")
+        tmp = proc = None
+        if not os.path.exists(so_path):
+            os.makedirs(_BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, so_path, tmp, proc))
+    built, failed = [], []
+    for src, so_path, tmp, proc in jobs:
+        log = ""
+        if proc is not None:
+            log = proc.communicate()[0]
+            if proc.returncode == 0:
+                os.replace(tmp, so_path)
+            else:
+                failed.append(f"nvcc failed on {src}:\n{log}")
+                os.remove(tmp)
+        built.append((so_path, log))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return built
+
+
 def build() -> ctypes.CDLL:
     """Compile csrc/fast_nms_blur.cu (once per source hash) and load it."""
     if _Lib.handle is not None:
         return _Lib.handle
-    with open(_SRC, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    so_path = os.path.join(_BUILD_DIR, f"libfast_nms_blur_{tag}.so")
-    if not os.path.exists(so_path):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        try:
-            subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                           check=True, capture_output=True, text=True)
-            os.replace(tmp, so_path)
-        except subprocess.CalledProcessError as e:
-            raise RuntimeError(f"nvcc failed:\n{e.stderr}") from e
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    lib = ctypes.CDLL(so_path)
-    lib.fast_nms_blur_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ctypes.c_void_p]
-    lib.fast_nms_blur_launch.restype = ctypes.c_int
+    lib = ctypes.CDLL(compile_sources([_SRC])[0][0])
+    lib.fast_nms_blur_pyramid_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+    lib.fast_nms_blur_pyramid_launch.restype = ctypes.c_int
     _Lib.handle = lib
     return lib
 
 
-def fast_nms_blur(img: torch.Tensor, th_high: float, th_low: float):
-    """Fused FAST score -> 3x3 NMS, and 7x7 blur, of one pyramid level.
+def pyramid_layout(shapes):
+    """Where each (H, W) level lies in a packed output buffer: ([element
+    offset per level], total elements). A level is a contiguous (H, W) block;
+    its offset is a multiple of 32 elements."""
+    offsets, total = [], 0
+    for h, w in shapes:
+        offsets.append(total)
+        total += -(-h * w // _OUT_ALIGN) * _OUT_ALIGN
+    return offsets, total
 
-    img: (H, W) float32, contiguous, H, W >= 4. Returns (score, blur), both
-    (H, W) float32. CPU tensors take the plain torch version; CUDA tensors
-    take the kernel, and `fast_nms_blur.launches` counts each launch."""
-    if img.dtype != torch.float32 or img.dim() != 2:
-        raise ValueError(f"expected a 2-D float32 image, got {img.dtype} "
-                         f"{tuple(img.shape)}")
-    if not img.is_contiguous():
-        raise ValueError("image must be contiguous")
-    H, W = img.shape
-    if H < 4 or W < 4:
-        raise ValueError(f"image {H}x{W} is below the 4x4 the borders need")
-    if img.device.type == "cpu":
-        return fast_nms_blur_plain(img, th_high, th_low)
-    if img.device.type != "cuda":
-        raise ValueError(f"unsupported device {img.device}")
+
+def pyramid_views(packed: torch.Tensor, shapes):
+    """The (H, W) view of each level in a packed buffer."""
+    offsets, _ = pyramid_layout(shapes)
+    return [packed[o:o + h * w].view(h, w)
+            for (h, w), o in zip(shapes, offsets)]
+
+
+@functools.lru_cache(maxsize=64)
+def _level_table(shapes):
+    """The host arrays the launch passes for a tuple of (H, W) shapes."""
+    n = len(shapes)
+    offsets, _ = pyramid_layout(shapes)
+    return ((ctypes.c_int * n)(*[h for h, _ in shapes]),
+            (ctypes.c_int * n)(*[w for _, w in shapes]),
+            (ctypes.c_longlong * n)(*offsets))
+
+
+def _check_levels(levels):
+    if not 1 <= len(levels) <= MAX_LEVELS:
+        raise ValueError(f"expected 1..{MAX_LEVELS} levels, got {len(levels)}")
+    for img in levels:
+        if img.dtype != torch.float32 or img.dim() != 2:
+            raise ValueError(f"expected a 2-D float32 image, got {img.dtype} "
+                             f"{tuple(img.shape)}")
+        if not img.is_contiguous():
+            raise ValueError("image must be contiguous")
+        if img.shape[0] < 4 or img.shape[1] < 4:
+            raise ValueError(f"image {img.shape[0]}x{img.shape[1]} is below "
+                             "the 4x4 the borders need")
+        if img.device != levels[0].device:
+            raise ValueError("levels lie on different devices")
+    if levels[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {levels[0].device}")
+
+
+def launch_into(levels, score: torch.Tensor, blur: torch.Tensor,
+                th_high: float, th_low: float) -> None:
+    """One kernel launch on the current stream: every level of `levels`
+    (checked by the caller) into the packed float32 buffers `score` and
+    `blur`, laid out by `pyramid_layout`. Allocates nothing on the device;
+    adds one to `fast_nms_blur.launches`."""
     lib = build()
-    score = torch.empty_like(img)
-    blur = torch.empty_like(img)
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = lib.fast_nms_blur_launch(
-            img.data_ptr(), score.data_ptr(), blur.data_ptr(), H, W,
-            float(th_high), float(th_low), _TAPS7.ctypes.data, stream)
+    dev = levels[0].device
+    heights, widths, offsets = _level_table(
+        tuple(tuple(img.shape) for img in levels))
+    imgs = (ctypes.c_void_p * len(levels))(*[i.data_ptr() for i in levels])
+    with torch.cuda.device(dev):
+        err = lib.fast_nms_blur_pyramid_launch(
+            imgs, heights, widths, offsets, len(levels), score.data_ptr(),
+            blur.data_ptr(), float(th_high), float(th_low),
+            _TAPS7.ctypes.data, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fast_nms_blur launch failed: CUDA error {err}")
     fast_nms_blur.launches += 1
-    return score, blur
+
+
+def fast_nms_blur_pyramid(levels, th_high: float, th_low: float):
+    """Fused FAST score -> 3x3 NMS, and 7x7 blur, of every pyramid level.
+
+    levels: 1..16 (H, W) float32 contiguous tensors on one device, H, W >= 4
+    (shapes may differ). Returns [(score, blur)] per level, each (H, W)
+    float32. CPU tensors take the plain torch version. CUDA tensors take the
+    kernel in ONE launch: the outputs of all levels are views of two packed
+    buffers allocated by this call."""
+    levels = list(levels)
+    _check_levels(levels)
+    if levels[0].device.type == "cpu":
+        return fast_nms_blur_pyramid_plain(levels, th_high, th_low)
+    shapes = [tuple(img.shape) for img in levels]
+    packed = torch.empty((2, pyramid_layout(shapes)[1]), dtype=torch.float32,
+                         device=levels[0].device)
+    launch_into(levels, packed[0], packed[1], th_high, th_low)
+    return list(zip(pyramid_views(packed[0], shapes),
+                    pyramid_views(packed[1], shapes)))
+
+
+def fast_nms_blur(img: torch.Tensor, th_high: float, th_low: float):
+    """The one-level case of `fast_nms_blur_pyramid`: (score, blur) of one
+    (H, W) float32 image. `fast_nms_blur.launches` counts every launch of
+    the kernel, whichever of the two entries made it."""
+    return fast_nms_blur_pyramid([img], th_high, th_low)[0]
 
 
 fast_nms_blur.launches = 0

@@ -5,9 +5,9 @@ the two-threshold bonus, 3x3 NMS, a cell grid with one best corner per cell,
 per-level top-k quotas, intensity-centroid angles from dense moment maps and
 the steered 256-bit descriptor with the same seeded pattern.
 
-The per-pixel stage of every level (FAST score + NMS + blur) is one call of
-`kernels.fast_nms_blur`: the hand-written CUDA kernel on the card, its plain
-torch twin on the CPU.
+The per-pixel stage of all levels (FAST score + NMS + blur) is one call of
+`kernels.fast_nms_blur_pyramid` per extraction: one launch of the
+hand-written CUDA kernel on the card, its plain torch twin on the CPU.
 
 Where torch and JAX differ and the port chooses:
 - pyramid resize: `jax.image.resize(..., 'bilinear')` is an antialiased
@@ -273,15 +273,15 @@ class OrbExtractor:
     def _extract(self, image: torch.Tensor) -> OrbFeatures:
         img0 = image.to(torch.float32).contiguous()
         H, W = img0.shape
+        # every level is resized from level 0, so all exist before the one
+        # kernel launch that scores and blurs them
+        levels = [img0] + [
+            resize_bilinear(img0, int(round(H / s)),
+                            int(round(W / s))).contiguous()
+            for s in self.scales[1:]]
+        maps = kernels.fast_nms_blur_pyramid(levels, self.ini_th, self.min_th)
         feats = []
-        img = img0
-        for lvl in range(self.n_levels):
-            if lvl > 0:
-                h = int(round(H / self.scales[lvl]))
-                w = int(round(W / self.scales[lvl]))
-                img = resize_bilinear(img0, h, w).contiguous()
-            smap, blurred = kernels.fast_nms_blur(img, self.ini_th,
-                                                  self.min_th)
+        for lvl, (img, (smap, blurred)) in enumerate(zip(levels, maps)):
             uv, score, valid = detect_level(smap, self.quotas[lvl], self.cell)
             m10, m01 = orientation_moment_maps(img)
             ang = orientations_from_maps(m10, m01, uv)

@@ -1,5 +1,7 @@
-"""The port's fast_nms_blur: plain twin vs the reference's XLA path on the
-CPU, wrapper contract, and (on a card only) the CUDA kernel vs its twin.
+"""The port's fast_nms_blur and fast_nms_blur_pyramid: plain twins vs the
+reference's XLA path on the CPU, wrapper contract, packed-output layout, the
+extractor through the pyramid entry, and (on a card only) the CUDA kernel vs
+its twin.
 
 The JAX reference is imported inside the tests that use it, so that this
 module also imports on a machine with a card and no JAX, where
@@ -26,6 +28,10 @@ BLUR_ATOL = 1e-4
 KERNEL_BLUR_ATOL = 1e-3
 
 SHAPES = [(480, 640), (133, 179), (37, 53)]
+# the 8 levels of a 480x640 frame at scale 1.2; shapes no tile divides
+LEVEL_SHAPES = [(int(round(480 / 1.2 ** i)), int(round(640 / 1.2 ** i)))
+                for i in range(8)]
+ODD_SHAPES = [(4, 4), (5, 37), (67, 130)]
 
 
 def _image(shape, seed=0):
@@ -81,6 +87,146 @@ def test_gaussian_taps_match_reference():
     from orb_slam2_e_tpu.ops import orb as jorb
     np.testing.assert_array_equal(kernels.gaussian_taps7(),
                                   jorb._gaussian_kernel1d(2.0, 3))
+
+
+@pytest.mark.parametrize("shapes", [LEVEL_SHAPES, ODD_SHAPES],
+                         ids=["levels_480x640", "odd"])
+def test_pyramid_matches_one_level_and_xla_path(shapes):
+    """The pyramid entry on the CPU: level by level bit-equal to the
+    one-level plain version, scores equal to the XLA path and blur within
+    BLUR_ATOL of it, whatever mix of shapes it is given."""
+    import jax.numpy as jnp
+    from orb_slam2_e_tpu.ops import orb as jorb
+    imgs = [_image(shape, seed=3 + k) for k, shape in enumerate(shapes)]
+    out = kernels.fast_nms_blur_pyramid([torch.from_numpy(i) for i in imgs],
+                                        TH_HIGH, TH_LOW)
+    assert len(out) == len(imgs)
+    for img, (score_t, blur_t) in zip(imgs, out):
+        score_1, blur_1 = kernels.fast_nms_blur_plain(torch.from_numpy(img),
+                                                      TH_HIGH, TH_LOW)
+        assert torch.equal(score_t, score_1) and torch.equal(blur_t, blur_1)
+        np.testing.assert_array_equal(
+            tnp(score_t), np.asarray(_xla_score_nms(jnp.asarray(img))))
+        np.testing.assert_allclose(
+            tnp(blur_t), np.asarray(jorb.gaussian_blur7(jnp.asarray(img))),
+            rtol=0, atol=BLUR_ATOL)
+
+
+@pytest.mark.parametrize("shapes", [LEVEL_SHAPES, ODD_SHAPES, [(64, 80)]],
+                         ids=["levels_480x640", "odd", "one"])
+def test_packed_layout_round_trips(shapes):
+    """Every level is a contiguous (H, W) view of the packed buffer at a
+    128-byte-aligned offset, no two levels overlap, and what is written
+    through a view is read back from the buffer at the offset."""
+    offsets, total = kernels.pyramid_layout(shapes)
+    assert offsets[0] == 0 and all(o % 32 == 0 for o in offsets)
+    ends = [o + h * w for o, (h, w) in zip(offsets, shapes)]
+    assert all(e <= o for e, o in zip(ends, offsets[1:])) and ends[-1] <= total
+    assert total % 32 == 0 and total - ends[-1] < 32
+    packed = torch.full((total,), -1.0)
+    views = kernels.pyramid_views(packed, shapes)
+    for k, (view, shape) in enumerate(zip(views, shapes)):
+        assert tuple(view.shape) == shape and view.is_contiguous()
+        view.copy_(torch.from_numpy(_image(shape, seed=k)))
+    for k, (o, shape) in enumerate(zip(offsets, shapes)):
+        np.testing.assert_array_equal(
+            tnp(packed[o:o + shape[0] * shape[1]]).reshape(shape),
+            _image(shape, seed=k))
+    covered = sum(h * w for h, w in shapes)
+    assert int((packed == -1.0).sum()) == total - covered
+
+
+@pytest.mark.parametrize("bad", ["none", "too_many", "mixed_dtype"])
+def test_pyramid_rejects_what_the_kernel_does_not_take(bad):
+    img = torch.from_numpy(_image((16, 16)))
+    arg = {"none": [], "too_many": [img] * (kernels.MAX_LEVELS + 1),
+           "mixed_dtype": [img, img.to(torch.float64)]}[bad]
+    with pytest.raises(ValueError):
+        kernels.fast_nms_blur_pyramid(arg, TH_HIGH, TH_LOW)
+
+
+@pytest.mark.parametrize("kind", ["noise", "blobs", "flat"])
+def test_early_reject_never_drops_a_score(kind):
+    """The kernel searches for an arc only where `may_score` is True: every
+    pixel with a score, in the port and in the reference, must pass it, and
+    on images with flat regions it must rule most pixels out."""
+    import jax.numpy as jnp
+    from orb_slam2_e_tpu.ops import orb as jorb
+    rng = np.random.RandomState(5)
+    if kind == "noise":
+        img = _image((97, 131), seed=5)
+    elif kind == "blobs":
+        img = np.full((97, 131), 90.0, np.float32)
+        for y, x in rng.randint(8, 90, (40, 2)):
+            img[y:y + rng.randint(2, 7), x:x + rng.randint(2, 7)] = \
+                rng.randint(0, 256)
+    else:
+        img = np.full((97, 131), 90.0, np.float32)
+    t = torch.from_numpy(img)
+    possible = tnp(kernels.may_score(t, min(TH_HIGH, TH_LOW)))
+    score_t = tnp(kernels.fast_score_map(t, TH_HIGH, TH_LOW))
+    score_j = np.asarray(jorb.fast_score_map(jnp.asarray(img), TH_HIGH,
+                                             TH_LOW))
+    assert not (score_t != 0)[~possible].any()
+    assert not (score_j != 0)[~possible].any()
+    if kind == "noise":
+        assert (score_t != 0).sum() > 0.05 * img.size
+    else:
+        assert possible.mean() < 0.5
+
+
+def test_extractor_through_pyramid_entry_keeps_the_features():
+    """OrbExtractor calls the pyramid entry once per extraction; its features
+    equal those of the level-by-level loop over the one-level entry."""
+    from orb_slam2_e_tpu_torch.ops import orb
+    img0 = torch.from_numpy(_image((120, 160), seed=7))
+    ex = orb.OrbExtractor(n_features=300, n_levels=4)
+    got = ex(img0)
+    feats = []
+    for lvl, s in enumerate(ex.scales):
+        img = img0 if lvl == 0 else orb.resize_bilinear(
+            img0, int(round(120 / s)), int(round(160 / s))).contiguous()
+        smap, blurred = kernels.fast_nms_blur(img, ex.ini_th, ex.min_th)
+        uv, score, valid = orb.detect_level(smap, ex.quotas[lvl], ex.cell)
+        ang = orb.orientations_from_maps(*orb.orientation_moment_maps(img),
+                                         uv)
+        feats.append(orb.OrbFeatures(
+            uv=uv * torch.tensor(s, dtype=torch.float32), response=score,
+            angle=ang, octave=torch.full((uv.shape[0],), lvl,
+                                         dtype=torch.int32),
+            desc=orb.compute_descriptors(blurred, uv, ang), valid=valid))
+    assert int(got.valid.sum()) > 100
+    for name in orb.OrbFeatures._fields:
+        want = torch.cat([getattr(f, name) for f in feats])
+        assert torch.equal(getattr(got, name), want), name
+
+
+# 12 levels of a 1080x1920 frame: more rows of the kernel's level table
+HD_SHAPES = [(int(round(1080 / 1.2 ** i)), int(round(1920 / 1.2 ** i)))
+             for i in range(12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("th_high,th_low", [(TH_HIGH, TH_LOW), (5.0, 9.0),
+                                            (20.0, 0.0)],
+                         ids=["default", "high_below_low", "low_0"])
+@pytest.mark.parametrize("shapes", [LEVEL_SHAPES, ODD_SHAPES, HD_SHAPES],
+                         ids=["levels_480x640", "odd", "levels_1080x1920"])
+def test_cuda_pyramid_matches_plain_in_one_launch(shapes, th_high, th_low):
+    dev = cuda_device()
+    imgs = [torch.from_numpy(_image(shape, seed=11 + k)).to(dev)
+            for k, shape in enumerate(shapes)]
+    # flat and smooth regions, where the early reject rules scores out
+    imgs[0][: imgs[0].shape[0] // 2] = 90.0
+    imgs[-1] = (imgs[-1] / 16.0).round()
+    before = kernels.fast_nms_blur.launches
+    got = kernels.fast_nms_blur_pyramid(imgs, th_high, th_low)
+    want = kernels.fast_nms_blur_pyramid_plain(imgs, th_high, th_low)
+    torch.cuda.synchronize()
+    assert kernels.fast_nms_blur.launches == before + 1
+    for (score_k, blur_k), (score_p, blur_p) in zip(got, want):
+        assert torch.equal(score_k, score_p)
+        assert (blur_k - blur_p).abs().max().item() <= KERNEL_BLUR_ATOL
 
 
 @pytest.mark.cuda
