@@ -9,14 +9,24 @@ against its plain torch twin on the card: the whole 8-level pyramid of a
 entry. Times it by replaying a CUDA graph of back-to-back launches, at level
 0 and for the pyramid, beside the baseline, the wrapper's call rate, the
 plain version and the card's bound for the same work. Then drives
-`SlamSystem` on the card through four phases on a synthetic 640x480 scene
-(camera fx=fy=500, 8 levels, 1000 features), each through the entry point a
-user calls:
+`SlamSystem` on the card through six phases on synthetic 640x480 scenes
+(8 levels, 1000 features), each through the entry point a user calls, with
+`SystemConfig(pipeline=False)` and everything else, loop closing included,
+at its default unless said:
 
-1. RGB-D, default SystemConfig, 30 frames;
+1. RGB-D, 30 frames of the benchmark's orbit (camera fx=fy=500);
 2. monocular, the benchmark's configuration (bench.py), 30 frames;
-3. stereo, default SystemConfig, 20 frames;
-4. RGB-D with frame 20 blanked, 30 frames: one LOST frame, relocalized.
+3. stereo, 20 frames;
+4. RGB-D with frame 20 blanked, 30 frames: one LOST frame, relocalized;
+5. loop closing: RGB-D, 96 frames on 1.1 turns of a circle looking outward
+   at a ring of points (the scene of tests/test_loop_e2e.py at this image
+   size). The revisit is detected, the Sim3 passes the ladder, the map is
+   corrected and fused, the essential graph optimized, and the global BA
+   runs in five chunks behind the frames that follow;
+6. localization-only mode: on phase 1's map, 10 more frames of the orbit;
+   then a map of the first 12 frames of the circle, and 30 more frames
+   that turn away from everything mapped, so that temporary visual-odometry
+   points carry the track. The maps must come out as they went in.
 
 Each phase checks tracking, trajectory error, its own gates and that every
 extraction went through the kernel in exactly one launch (the launch count
@@ -54,6 +64,16 @@ ATE_MAX = 0.08           # metres, SE3-aligned (the reference's e2e gate)
 MONO_ATE_MAX = 0.10      # Sim3-aligned (the reference's mono e2e gate)
 MONO_INIT_BY = 12        # mono must initialize by this frame
 BLANK = 20               # the relocalization phase's blanked frame
+# the loop phase: the ring scene and circle of tests/test_loop_e2e.py (480
+# px wide, fx 260), at this image size with the same field of view
+LOOP_FX = 260.0 * WIDTH / 480
+LOOP_FRAMES = 96
+LOOP_ATE_MAX = 0.10      # metres, SE3-aligned (the reference's loop gate)
+LOC_ORBIT_FRAMES = 10    # localization-only frames on the RGB-D phase's map
+LOC_MAPPED, LOC_FRAMES = 12, 30   # of the circle: mapped, then localized
+# the localized frames end on temporary points alone (dead reckoning), so
+# their error grows with every frame off the map
+LOC_VO_ATE_MAX = 0.20
 KERNEL_SOURCE = "orb_slam2_e_tpu_torch/csrc/fast_nms_blur.cu"
 BASELINE_SOURCE = "orb_slam2_e_tpu_torch/csrc/fast_nms_blur_v1.cu"
 REPLACES = "orb_slam2_e_tpu/ops/pallas_kernels.py:148"
@@ -117,6 +137,25 @@ def make_scene():
 
 def grey(scene, R, t):
     return scene.render(R, t).astype(np.uint8)
+
+
+def ring_camera() -> dict:
+    return dict(fx=LOOP_FX, fy=LOOP_FX, cx=WIDTH / 2, cy=HEIGHT / 2, bf=BF,
+                width=WIDTH, height=HEIGHT)
+
+
+def make_ring():
+    """The loop phase's scene: a band of points around the origin, and 1.1
+    turns of a circle inside it, looking outward."""
+    from orb_slam2_e_tpu_torch.utils.synthetic import (make_ring_scene,
+                                                       circle_trajectory)
+    cam = ring_camera()
+    scene = make_ring_scene(n_points=1000, seed=2, ring_radius=9.0,
+                            **{k: cam[k] for k in ("fx", "fy", "cx", "cy",
+                                                   "width", "height")})
+    poses, centers = circle_trajectory(n_frames=LOOP_FRAMES, radius=2.0,
+                                       frac=1.1)
+    return scene, poses, centers
 
 
 def replay_ms(enqueue, n: int = 40, replays: int = 15,
@@ -344,29 +383,58 @@ def check_kernel(image0: np.ndarray):
     return record
 
 
-def drive(name, slam, inputs, centers, with_scale):
-    """One phase: `inputs[k]` fed to the sensor's entry point for every
-    frame, timed per stage between synchronizations. Returns a summary."""
-    from orb_slam2_e_tpu_torch.models.system import Sensor
-    from orb_slam2_e_tpu_torch.ops import kernels
-    from orb_slam2_e_tpu_torch.utils.trajectory import ate_rmse
+def instrument(slam):
+    """Time the system's stages between synchronizations. Returns
+    {stage: [ms]}. `insert+map` contains the loop closer's stages, which
+    run behind every inserted keyframe: `loop query` (the candidate query
+    queued for the new keyframe), `loop harvest` (the previous query read,
+    no closure) and `closure` (a harvest that closed a loop: Sim3, ladder,
+    correction, essential graph, fusion, the global BA's set-up). `gba
+    chunk` is one chunk of the global BA, queued behind a frame's step."""
     stages = {"extract": "_make_frame_inputs", "track": "_track_step",
               "insert+map": "_insert_keyframe", "relocalize": "_relocalize",
-              "init": "_initialize"}
-    stage_ms = {k: [] for k in stages}
+              "init": "_initialize", "loop query": "_loop_dispatch",
+              "loop harvest": "_loop_harvest", "gba chunk": "_advance_gba"}
+    stage_ms = {k: [] for k in list(stages) + ["closure"]}
 
     def timed(key, fn):
         def wrapper(*args, **kwargs):
+            # a stage that has nothing to do is not a sample of it
+            idle = {"loop harvest": slam._loop_pending is None,
+                    "gba chunk": slam._gba is None}.get(key, False)
+            closed = slam.stats["loops_closed"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            stage_ms[key].append((time.perf_counter() - t0) * 1e3)
+            ms = (time.perf_counter() - t0) * 1e3
+            if key == "loop query" and slam._loop_pending is None:
+                idle = True             # gated off: too few keyframes
+            if not idle:
+                closure = (key == "loop harvest"
+                           and slam.stats["loops_closed"] > closed)
+                stage_ms["closure" if closure else key].append(ms)
             return out
         return wrapper
 
     for key, attr in stages.items():
         setattr(slam, attr, timed(key, getattr(slam, attr)))
+    return stage_ms
+
+
+def drive(name, slam, inputs, centers, with_scale, first_frame=0,
+          stage_ms=None):
+    """One phase: `inputs[k]` fed to the sensor's entry point for every
+    frame, timed per stage between synchronizations. A system that an
+    earlier phase drove goes on from `first_frame` with the `stage_ms` it
+    was instrumented with. Returns a summary."""
+    from orb_slam2_e_tpu_torch.models.system import Sensor
+    from orb_slam2_e_tpu_torch.ops import kernels
+    from orb_slam2_e_tpu_torch.utils.trajectory import ate_rmse
+    if stage_ms is None:
+        stage_ms = instrument(slam)
+    for v in stage_ms.values():
+        v.clear()
     entry = {Sensor.RGBD: slam.track_rgbd, Sensor.MONOCULAR:
              slam.track_monocular, Sensor.STEREO: slam.track_stereo}[
         slam.sensor]
@@ -374,9 +442,20 @@ def drive(name, slam, inputs, centers, with_scale):
     kernels.fast_nms_blur.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    est = []
+    est, frame_ms, vo_frames = [], {"chunk": [], "plain": []}, []
+    events = {"loops_closed": [], "gba_completed": []}
     for k, args in enumerate(inputs):
-        pose = entry(*args, k / 30.0)
+        chunk = slam._gba is not None     # a global-BA chunk rides behind
+        counts = {key: slam.stats.get(key, 0) for key in events}
+        tf = time.perf_counter()
+        pose = entry(*args, (first_frame + k) / 30.0)
+        frame_ms["chunk" if chunk else "plain"].append(
+            (time.perf_counter() - tf) * 1e3)
+        if slam.vo_mode:
+            vo_frames.append(k)
+        for key, before in counts.items():
+            if slam.stats.get(key, 0) > before:
+                events[key].append(k)
         est.append(None if pose is None else
                    (-pose[0].T @ pose[1]).double().cpu().numpy())
     torch.cuda.synchronize()
@@ -386,7 +465,7 @@ def drive(name, slam, inputs, centers, with_scale):
     tracked = [k for k, c in enumerate(est) if c is not None]
     _, Rwc, twc = slam.get_trajectory()
     if not (np.isfinite(Rwc).all() and np.isfinite(twc).all()
-            and twc.shape == (len(tracked), 3)):
+            and twc.shape[1:] == (3,) and len(twc) >= len(tracked)):
         raise AssertionError(f"{name}: trajectory not finite or misshaped")
     ate = ate_rmse(np.stack([est[k] for k in tracked]),
                    centers[tracked].astype(np.float64), with_scale)
@@ -400,8 +479,18 @@ def drive(name, slam, inputs, centers, with_scale):
         if v:
             print(f"[{name}] stage {key}: median {statistics.median(v):.2f} "
                   f"ms over {len(v)} calls")
+    if frame_ms["chunk"]:
+        print(f"[{name}] frame ms (stages synchronized): median "
+              f"{statistics.median(frame_ms['chunk']):.2f} with a global-BA "
+              f"chunk behind it ({len(frame_ms['chunk'])} frames), "
+              f"{statistics.median(frame_ms['plain']):.2f} without "
+              f"({len(frame_ms['plain'])} frames)")
+    if events["loops_closed"]:
+        print(f"[{name}] loop closed behind frame {events['loops_closed']}, "
+              f"global BA merged behind frame {events['gba_completed']}")
     print(f"[{name}] fast_nms_blur launches: {launches}")
-    return {"tracked": tracked, "ate": ate, "launches": launches}
+    return {"tracked": tracked, "ate": ate, "launches": launches,
+            "vo_frames": vo_frames, "stage_ms": stage_ms}
 
 
 def expect(cond, what):
@@ -414,15 +503,16 @@ def run_rgbd(scene, poses, centers, n_frames=30):
                                                      SystemConfig, Sensor)
     from orb_slam2_e_tpu_torch.ops.camera import Camera
     cam = Camera.create(fx=FX, fy=FX, cx=WIDTH / 2, cy=HEIGHT / 2, bf=BF)
-    slam = SlamSystem(cam, SystemConfig(pipeline=False, loop_closing=False),
-                      Sensor.RGBD, device="cuda")
+    slam = SlamSystem(cam, SystemConfig(pipeline=False), Sensor.RGBD,
+                      device="cuda")
     inputs = [(grey(scene, R, t), scene.depth_map(R, t))
               for R, t in poses[:n_frames]]
     r = drive("rgbd", slam, inputs, centers[:n_frames], with_scale=False)
-    expect(len(r["tracked"]) >= n_frames - 1, f"rgbd tracked {r}")
+    expect(len(r["tracked"]) >= n_frames - 1, f"rgbd tracked {r['tracked']}")
     expect(r["ate"] < ATE_MAX, f"rgbd ATE {r['ate']}")
     expect(r["launches"] == n_frames, f"rgbd launches {r['launches']}")
-    return r["launches"]
+    expect(slam.stats["loops_closed"] == 0, f"rgbd stats {slam.stats}")
+    return r["launches"], (slam, r["stage_ms"], n_frames)
 
 
 def run_mono(scene, poses, centers, n_frames=30):
@@ -434,8 +524,7 @@ def run_mono(scene, poses, centers, n_frames=30):
                         width=WIDTH, height=HEIGHT)
     cfg = SystemConfig(max_keyframes=64, max_points=16384, n_features=1000,
                        n_levels=8, max_frames_between_kf=6,
-                       min_init_matches=80, pipeline=False,
-                       loop_closing=False)
+                       min_init_matches=80, pipeline=False)
     slam = SlamSystem(cam, cfg, Sensor.MONOCULAR, device="cuda", seed=0)
     inputs = [(grey(scene, R, t),) for R, t in poses[:n_frames]]
     r = drive("mono", slam, inputs, centers[:n_frames], with_scale=True)
@@ -455,14 +544,15 @@ def run_stereo(scene, poses, centers, n_frames=20):
     from orb_slam2_e_tpu_torch.ops.camera import Camera
     cam = Camera.create(fx=FX, fy=FX, cx=WIDTH / 2, cy=HEIGHT / 2, bf=BF,
                         width=WIDTH, height=HEIGHT)
-    slam = SlamSystem(cam, SystemConfig(pipeline=False, loop_closing=False),
-                      Sensor.STEREO, device="cuda")
+    slam = SlamSystem(cam, SystemConfig(pipeline=False), Sensor.STEREO,
+                      device="cuda")
     # the right camera sits one baseline along the camera x axis
     shift = np.array([-BF / FX, 0.0, 0.0], np.float32)
     inputs = [(grey(scene, R, t), grey(scene, R, t + shift))
               for R, t in poses[:n_frames]]
     r = drive("stereo", slam, inputs, centers[:n_frames], with_scale=False)
-    expect(len(r["tracked"]) >= n_frames - 1, f"stereo tracked {r}")
+    expect(len(r["tracked"]) >= n_frames - 1,
+           f"stereo tracked {r['tracked']}")
     expect(r["ate"] < ATE_MAX, f"stereo ATE {r['ate']}")
     expect(r["launches"] == 2 * n_frames,
            f"stereo launches {r['launches']}")
@@ -476,8 +566,8 @@ def run_reloc(scene, poses, centers, n_frames=30):
                                                      SystemConfig, Sensor)
     from orb_slam2_e_tpu_torch.ops.camera import Camera
     cam = Camera.create(fx=FX, fy=FX, cx=WIDTH / 2, cy=HEIGHT / 2, bf=BF)
-    slam = SlamSystem(cam, SystemConfig(pipeline=False, loop_closing=False),
-                      Sensor.RGBD, device="cuda")
+    slam = SlamSystem(cam, SystemConfig(pipeline=False), Sensor.RGBD,
+                      device="cuda")
     inputs = [(grey(scene, R, t), scene.depth_map(R, t))
               for R, t in poses[:n_frames]]
     inputs[BLANK] = (np.zeros_like(inputs[BLANK][0]), inputs[BLANK][1])
@@ -493,6 +583,135 @@ def run_reloc(scene, poses, centers, n_frames=30):
     return r["launches"]
 
 
+def run_loop(seed=0):
+    """Loop closing on the card, at full width: the default configuration
+    around 1.1 turns of the ring. `seed` seeds the system's RANSAC draws."""
+    from orb_slam2_e_tpu_torch.models.system import (SlamSystem,
+                                                     SystemConfig, Sensor)
+    from orb_slam2_e_tpu_torch.models import loop_closing
+    from orb_slam2_e_tpu_torch.ops.camera import Camera
+    scene, poses, centers = make_ring()
+    slam = SlamSystem(Camera.create(**ring_camera()),
+                      SystemConfig(pipeline=False), Sensor.RGBD,
+                      device="cuda", seed=seed)
+    inputs = [(grey(scene, R, t), scene.depth_map(R, t)) for R, t in poses]
+    n = len(inputs)
+    # the loop closer's own steps, timed where the system calls them
+    parts = ("compute_sim3", "verify_sim3", "correct_and_optimize_graph",
+             "search_and_fuse", "gba_problem", "gba_merge")
+    part_ms = {k: [] for k in parts}
+    saved = {k: getattr(loop_closing, k) for k in parts}
+
+    def timed(key):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved[key](*args, **kwargs)
+            torch.cuda.synchronize()
+            part_ms[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    for key in parts:
+        setattr(loop_closing, key, timed(key))
+    try:
+        r = drive("loop", slam, inputs, centers, with_scale=False)
+    finally:
+        for key in parts:
+            setattr(loop_closing, key, saved[key])
+    for key, v in part_ms.items():
+        if v:
+            print(f"[loop] {key}: median {statistics.median(v):.2f} ms over "
+                  f"{len(v)} calls")
+    t0 = time.perf_counter()
+    pending = slam._gba is not None
+    slam.shutdown()
+    print(f"[loop] shutdown {(time.perf_counter() - t0) * 1e3:.1f} ms "
+          f"(a global BA was {'still' if pending else 'not'} pending); "
+          f"stats {slam.stats}")
+    print(f"[loop] capacity_clips {slam.stats['capacity_clips']} clip_bits "
+          f"{slam.stats['clip_bits']:#x}; loop edges "
+          f"{int((slam.map.kf_loop_edge >= 0).sum())}")
+    expect(slam.stats["loops_closed"] >= 1, f"no loop closed: {slam.stats}")
+    expect(slam.stats.get("gba_completed", 0) >= 1,
+           f"no global BA completed: {slam.stats}")
+    expect(slam._gba is None and slam._loop_pending is None,
+           "shutdown left work pending")
+    expect(len(r["tracked"]) >= n - 6, f"loop tracked {len(r['tracked'])}")
+    expect(r["ate"] < LOOP_ATE_MAX, f"loop ATE {r['ate']}")
+    expect(len(r["stage_ms"]["loop query"]) >= 10
+           and len(r["stage_ms"]["closure"]) >= 1
+           and len(r["stage_ms"]["gba chunk"]) >= slam.GBA_CHUNKS,
+           "the loop closer's stages did not all run")
+    expect(r["launches"] == n, f"loop launches {r['launches']}")
+    expect(bool(torch.isfinite(slam.map.kf_pose7).all())
+           and bool(torch.isfinite(slam.map.lm_xyz).all()),
+           "loop: the map is not finite")
+    return r["launches"]
+
+
+def _map_copy(slam):
+    return {k: v.clone() for k, v in slam.map._asdict().items()}
+
+
+def _expect_map_unchanged(slam, before, what):
+    for k, v in slam.map._asdict().items():
+        expect(torch.equal(v, before[k]), f"{what}: map field {k} changed")
+
+
+def run_loc(orbit, rgbd_state):
+    """Localization-only mode: on the RGB-D phase's map along the orbit,
+    then off the edge of a freshly mapped arc of the ring."""
+    from orb_slam2_e_tpu_torch.models.system import (SlamSystem,
+                                                     SystemConfig, Sensor)
+    from orb_slam2_e_tpu_torch.ops.camera import Camera
+    scene, poses, centers = orbit
+    slam, stage_ms, n0 = rgbd_state
+    before, n_kf = _map_copy(slam), slam.n_keyframes
+    slam.activate_localization_mode()
+    sl = slice(n0, n0 + LOC_ORBIT_FRAMES)
+    inputs = [(grey(scene, R, t), scene.depth_map(R, t))
+              for R, t in poses[sl]]
+    r = drive("loc-orbit", slam, inputs, centers[sl], with_scale=False,
+              first_frame=n0, stage_ms=stage_ms)
+    launches = r["launches"]
+    expect(len(r["tracked"]) == LOC_ORBIT_FRAMES,
+           f"loc-orbit tracked {r['tracked']}")
+    expect(r["launches"] == LOC_ORBIT_FRAMES,
+           f"loc-orbit launches {r['launches']}")
+    _expect_map_unchanged(slam, before, "loc-orbit")
+    expect(slam.n_keyframes == n_kf, "loc-orbit inserted a keyframe")
+    print(f"[loc-orbit] map unchanged: {n_kf} keyframes, "
+          f"{int(slam.map.lm_valid.sum())} landmarks; VO frames "
+          f"{r['vo_frames']}")
+
+    scene, poses, centers = make_ring()
+    slam = SlamSystem(Camera.create(**ring_camera()),
+                      SystemConfig(pipeline=False), Sensor.RGBD,
+                      device="cuda")
+    n1, n2 = LOC_MAPPED, LOC_MAPPED + LOC_FRAMES
+    inputs = [(grey(scene, R, t), scene.depth_map(R, t))
+              for R, t in poses[:n2]]
+    r = drive("loc-map", slam, inputs[:n1], centers[:n1], with_scale=False)
+    launches += r["launches"]
+    expect(len(r["tracked"]) == n1, f"loc-map tracked {r['tracked']}")
+    before, n_kf = _map_copy(slam), slam.n_keyframes
+    slam.activate_localization_mode()
+    r = drive("loc-vo", slam, inputs[n1:], centers[n1:n2], with_scale=False,
+              first_frame=n1, stage_ms=r["stage_ms"])
+    launches += r["launches"]
+    print(f"[loc-vo] VO frames {r['vo_frames']}; map unchanged: {n_kf} "
+          f"keyframes, {int(slam.map.lm_valid.sum())} landmarks")
+    expect(len(r["tracked"]) == LOC_FRAMES, f"loc-vo tracked {r['tracked']}")
+    expect(len(r["vo_frames"]) >= 1, "loc-vo: the VO flag never rose")
+    expect(r["ate"] < LOC_VO_ATE_MAX, f"loc-vo ATE {r['ate']}")
+    _expect_map_unchanged(slam, before, "loc-vo")
+    expect(slam.n_keyframes == n_kf, "loc-vo inserted a keyframe")
+    expect(launches == LOC_ORBIT_FRAMES + n2, f"loc launches {launches}")
+    slam.deactivate_localization_mode()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -506,10 +725,23 @@ def main() -> int:
     if sys.argv[1:] == ["--kernel-only"]:
         print(json.dumps({"kernels": [record]}))
         return 0
-    for phase in (run_rgbd, run_mono, run_stereo, run_reloc):
+    orbit = (scene, poses, centers)
+
+    def phase(fn, *args):
         t0 = time.perf_counter()
-        record["launches"] += phase(scene, poses, centers)
-        print(f"{phase.__name__}: passed in {time.perf_counter() - t0:.1f} s")
+        out = fn(*args)
+        print(f"{fn.__name__}: passed in {time.perf_counter() - t0:.1f} s")
+        return out
+
+    n_rgbd, rgbd_state = phase(run_rgbd, *orbit)
+    record["launches"] = (
+        n_rgbd + phase(run_mono, *orbit) + phase(run_stereo, *orbit)
+        + phase(run_reloc, *orbit) + phase(run_loop)
+        + phase(run_loc, orbit, rgbd_state))
+    # one launch per extraction: 30 + 30 + 2 x 20 + 30 on the orbit, 96
+    # around the ring, 10 + 12 + 30 in localization-only mode
+    expect(record["launches"] == 130 + LOOP_FRAMES + LOC_ORBIT_FRAMES
+           + LOC_MAPPED + LOC_FRAMES, f"launch total {record['launches']}")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print(card_line())

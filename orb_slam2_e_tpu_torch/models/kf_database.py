@@ -1,9 +1,9 @@
 """Keyframe recognition database: per-keyframe BoW vectors, dense scoring.
 
-Port of the relocalization part of `orb_slam2_e_tpu/models/kf_database.py`
-(reference KeyFrameDatabase: add, erase, DetectRelocalizationCandidates).
-The inverted file is a dense (K, W) tf-idf matrix, and a query is one L1
-over every keyframe. Loop-candidate detection waits for loop closing.
+Port of `orb_slam2_e_tpu/models/kf_database.py` (reference
+KeyFrameDatabase: add, erase, DetectRelocalizationCandidates,
+DetectLoopCandidates). The inverted file is a dense (K, W) tf-idf matrix,
+and a query is one L1 over every keyframe.
 """
 
 from __future__ import annotations
@@ -58,3 +58,35 @@ def detect_relocalization_candidates(db: BowDatabase, q: torch.Tensor,
     `jax.lax.top_k`). Returns (slots (n,), scores (n,))."""
     top_s, top_i = top_k(query_scores(db, q), n_candidates)
     return top_i, top_s
+
+
+def detect_loop_candidates_full(db: BowDatabase, q: torch.Tensor, state, kf,
+                                n_candidates: int = 5):
+    """Loop-candidate query for keyframe `kf` (the reference DetectLoop
+    preamble, LoopClosing.cc:103-150): covisible keyframes are excluded, the
+    lowest score among the strongly covisible ones (>= 15 shared points) is
+    the minimum score, and the best `n_candidates` are ranked, the lower
+    slot first on ties (with few eligible keyframes several scores are -1
+    and tie). Nothing is read by the host.
+
+    Returns (slots (n,), scores (n,), groups (n, K) bool): each candidate's
+    covisibility group (itself and its covisible keyframes) for the
+    host-side consistency check."""
+    covis = state.covisibility_row(kf)
+    scores = query_scores(db, q)
+    covis_mask = (covis >= 15) & state.kf_valid
+    inf = torch.full_like(scores, float("inf"))
+    min_score = torch.min(torch.where(covis_mask, scores, inf))
+    min_score = torch.where(torch.isfinite(min_score),
+                            torch.clamp(min_score, min=0.01),
+                            torch.full_like(min_score, 0.05))
+    exclude = (covis > 0) | ~state.kf_valid
+    exclude[kf] = True
+    minus1 = torch.full_like(scores, -1.0)
+    s = torch.where(exclude, minus1, scores)
+    s = torch.where(s >= min_score, s, minus1)
+    top_s, top_i = top_k(s, n_candidates)
+    grp = torch.stack([state.covisibility_row(top_i[c]) > 0
+                       for c in range(n_candidates)])
+    grp[torch.arange(n_candidates, device=grp.device), top_i] = True
+    return top_i, top_s, grp

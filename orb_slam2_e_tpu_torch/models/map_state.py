@@ -117,10 +117,12 @@ class MapState(NamedTuple):
             .scatter_add(0, torch.where(ok, pt, 0).long(), ok.to(_I32))
 
     def covisibility_row(self, kf) -> torch.Tensor:
-        """(K,) int32 shared-observation counts between keyframe `kf` and
-        all keyframes (reference KeyFrame::UpdateConnections weights)."""
-        my_pts = self.kf_kp_point[kf]
-        my_mask = (my_pts >= 0) & self.kf_kp_valid[kf]
+        """(K,) int32 shared-observation counts between keyframe `kf` (an
+        int or an integer tensor; a tensor is not read by the host) and all
+        keyframes (reference KeyFrame::UpdateConnections weights)."""
+        k1 = torch.as_tensor(kf, device=self.device).reshape(1).long()
+        my_pts = self.kf_kp_point.index_select(0, k1)[0]
+        my_mask = (my_pts >= 0) & self.kf_kp_valid.index_select(0, k1)[0]
         marker = torch.zeros((self.P,), dtype=_I32, device=self.device) \
             .scatter_reduce(0, torch.where(my_mask, my_pts, 0).long(),
                             my_mask.to(_I32), reduce="amax")
@@ -128,8 +130,23 @@ class MapState(NamedTuple):
         other = torch.where(ok, self.kf_kp_point, 0).long()
         hits = marker[other] * ok
         row = (hits.sum(1) * self.kf_valid).to(_I32)
-        row[kf] = 0
-        return row
+        return row.index_fill(0, k1, 0)
+
+    def covisibility_matrix(self) -> torch.Tensor:
+        """(K, K) int32 covisibility weights, W = A A^T over the (K, P)
+        keyframe-landmark incidence A, with a zero diagonal. A is float32
+        (CUDA has no integer matmul): counts below 2^24 are exact. The
+        incidence is a max-scatter, here as in the reference, so a masked
+        feature (which aliases landmark 0) never clears a real observation
+        of landmark 0."""
+        obs_ok = ((self.kf_kp_point >= 0) & self.kf_kp_valid
+                  & self.kf_valid[:, None])
+        pid = torch.where(obs_ok, self.kf_kp_point, 0).long()
+        A = torch.zeros((self.K, self.P), dtype=torch.float32,
+                        device=self.device)
+        A.scatter_reduce_(1, pid, obs_ok.to(torch.float32), reduce="amax")
+        W = (A @ A.T).to(_I32)
+        return W * (1 - torch.eye(self.K, dtype=_I32, device=self.device))
 
     # ---- functional updates ----
 

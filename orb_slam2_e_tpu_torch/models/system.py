@@ -10,9 +10,21 @@ RGB-D from one. A LOST frame, on any sensor, is relocalized through BoW
 candidates, PnP RANSAC and the rigid S1/S2/S3 ladder, and the relocalization
 KPI protocol (`reloc_test_all_frames`) is supported.
 
+Behind every inserted keyframe the loop closer runs (`loop_closing`, on by
+default): a BoW candidate query whose result is read when the next keyframe
+arrives, the covisibility-group consistency check, Sim3 RANSAC and
+refinement, the verification ladder, the loop correction with the
+essential-graph optimization, loop fusion, and a global BA on a snapshot of
+the map, run in chunks (one behind each tracked frame) and merged back.
+
+In localization-only mode (`SystemConfig(mapping=False)` or
+`activate_localization_mode()`) the map is never changed: frames are tracked
+against it, with temporary visual-odometry points where the camera leaves
+it and relocalization beside them.
+
 What this port refuses, with NotImplementedError naming the ROADMAP item:
-loop closing, the deformable (FEM, non-rigid) mode, the pipelined loop,
-localization-only mode, and map save/load.
+the deformable (FEM, non-rigid) mode, the pipelined loop, and map
+save/load.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import ba as ba_ops
 from ..ops import bow, lie, matching
 from ..ops import stereo as stereo_ops
 from ..ops.camera import Camera
@@ -35,6 +48,7 @@ from .frame import Frame, frame_from_features, sample_depth_at
 from .map_state import MapState, INVALID
 from . import kf_database as KFDB
 from . import local_mapping as LM
+from . import loop_closing as LC
 from . import relocalization as RELOC
 from . import tracking as T
 
@@ -92,22 +106,20 @@ class SystemConfig:
 
 
 _REFUSED = (
-    ("loop_closing", True, "loop closing (ROADMAP Q1 #14)"),
     ("deformable", True, "the deformable FEM mode (ROADMAP Q1 #15)"),
     ("pipeline", True, "the pipelined frame loop (ROADMAP Q1 #8: the "
                        "synchronous loop is the port's)"),
-    ("mapping", False, "localization-only mode (ROADMAP Q1 #13)"),
 )
 
 
 class SlamSystem:
     """SLAM facade. Typical use:
 
-        sys = SlamSystem(cam, SystemConfig(pipeline=False,
-                                           loop_closing=False),
+        sys = SlamSystem(cam, SystemConfig(pipeline=False),
                          Sensor.MONOCULAR, device="cuda", seed=0)
         for im, ts in frames:
             pose = sys.track_monocular(im, ts)   # (R, t) Tcw or None
+        sys.shutdown()                # finishes a pending global BA
         sys.save_trajectory_tum("traj.txt")
 
     `seed` seeds the system's `torch.Generator` (on `device`), which draws
@@ -157,6 +169,11 @@ class SlamSystem:
         self.gen.manual_seed(seed)
         self.reset()
 
+    # chunked global BA: 5 chunks x 2 LM iterations = the reference's 10
+    GBA_CHUNKS = 5
+    GBA_ITERS_PER_CHUNK = 2
+    GBA_CG_ITERS = 50
+
     # ------------------------------------------------------------------ state
     def reset(self):
         """Reference System::Reset -> Tracking::Reset."""
@@ -173,11 +190,22 @@ class SlamSystem:
         self.last_kf_frame_id = -1
         self.last_reloc_frame_id = -10 ** 9
         self._ref_matches = 0
+        self._loop_pending = None   # loop-candidate query not yet read
+        self._gba = None            # pending chunked global BA
+        self._reset_gen = getattr(self, "_reset_gen", 0) + 1
         self.n_keyframes = 0
         self.trajectory = []      # (timestamp, pose7 tensor or None)
+        self.localization_only = not self.cfg.mapping
+        self.vo_mode = False      # reference Tracking::mbVO
+        # clip_bits: 0 BA points, 1 fixed ring, 2 BA obs, 3 fuse, 4 local-map
+        # search, 5 GBA obs, 6 essential-graph edges, 7 verify_sim3 loop
+        # group, 8 loop search_and_fuse
         self.stats = {"kf_inserted": 0, "points_created": 0,
                       "points_culled": 0, "kf_culled": 0, "relocs": 0,
                       "loops_closed": 0, "capacity_clips": 0, "clip_bits": 0}
+        self.loop_detector = LC.LoopDetector()
+        self.last_loop_kf = -1000
+        self._last_loop_kf_count = 0
         # place recognition: the pretrained vocabulary when there is one,
         # else one trained from the first keyframes (`_ensure_vocab`)
         self.vocab = None
@@ -190,8 +218,10 @@ class SlamSystem:
 
     def activate_localization_mode(self):
         """Reference System::ActivateLocalizationMode."""
-        raise NotImplementedError(
-            "localization-only mode (ROADMAP Q1 #13) is not ported")
+        self.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.localization_only = False
 
     def get_tracking_state(self) -> TrackState:
         return self.state
@@ -253,15 +283,20 @@ class SlamSystem:
         return self._track_sync(inputs, timestamp)
 
     def _track_step(self, frame: Frame):
-        """The tracking step and its one host read. Returns (frame,
-        velocity7', [ok, n_inliers, ref_matches, clipped])."""
+        """The tracking step, not yet read by the host. Returns (frame,
+        velocity7', flags tensor): [ok, n_inliers, ref_matches, clipped],
+        and in localization-only mode also [vo, n_total_mm]; there the
+        step tracks with temporary VO points and leaves the map as it is
+        (reference "Localization Mode", Tracking.cc:395-485)."""
         have_vel = self.velocity7 is not None
         vel = self.velocity7 if have_vel else lie.pose7_identity(
             device=self.device)
-        self.map, frame, vel_new, flags = T.track_frame_fused(
-            self.cam, self.track_cfg, self.map, frame, self.last_frame,
-            vel, have_vel, max(self.last_kf_slot, 0))
-        return frame, vel_new, flags.tolist()
+        args = (self.cam, self.track_cfg, self.map, frame, self.last_frame,
+                vel, have_vel, max(self.last_kf_slot, 0))
+        if self.localization_only:
+            return T.track_frame_loc(*args)
+        self.map, frame, vel_new, flags = T.track_frame_fused(*args)
+        return frame, vel_new, flags
 
     def _track_sync(self, inputs: tuple, timestamp: float):
         """One tracking step and ONE packed device->host read per frame;
@@ -281,25 +316,53 @@ class SlamSystem:
             self.kpi.on_frame_lost(self.frame_id)
             self._record(timestamp, None)
             return None
+        loc = self.localization_only
         frame, vel_new, flags = self._track_step(
             self._make_frame_inputs(inputs))
+        if self._gba is not None and flags.device.type == "cuda":
+            # one bounded chunk of a pending global BA rides the queue
+            # behind this frame's step: the copy of the flags is queued
+            # first and the host waits for that copy alone, not for the
+            # chunk queued after it
+            host = torch.empty(flags.shape, dtype=flags.dtype,
+                               pin_memory=True)
+            host.copy_(flags, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record()
+            self._advance_gba()
+            copied.synchronize()
+            flags = host
+        else:
+            self._advance_gba()
+        flags = flags.tolist()            # the frame's one host read
         ok, n_in, self._ref_matches, clipped = (bool(flags[0]), flags[1],
                                                 flags[2], flags[3])
         if clipped:                       # local-map search hit its capacity
             self.stats["capacity_clips"] += 1
             self.stats["clip_bits"] |= 1 << 4
+        vo = loc and bool(flags[4])
+        self.vo_mode = vo
         relocalized = False
         if self.state == TrackState.LOST:
             # once lost, only relocalization rescues (reference
             # Tracking.cc:392)
             frame, ok = self._relocalize(frame)
             relocalized = ok
+        elif vo:
+            # VO mode: the motion-model and the relocalization solution
+            # side by side; relocalization wins when it succeeds
+            # (reference Tracking.cc:425-465)
+            frame_r, rok = self._relocalize(frame)
+            if rok:
+                frame, ok, relocalized = frame_r, True, True
+                self.vo_mode = False
         if not ok:
             was_ok = self.state == TrackState.OK
             self.state = TrackState.LOST
             self.velocity7 = None
             self.kpi.on_frame_lost(self.frame_id)
-            if was_ok and self.n_keyframes <= 5:
+            if was_ok and self.n_keyframes <= 5 \
+                    and not self.localization_only:
                 self.reset()              # lost right after init: restart
             self._record(timestamp, None)
             self.last_frame = frame
@@ -317,7 +380,7 @@ class SlamSystem:
             self._record(timestamp, None)
             self.last_frame = frame
             return None
-        if self._need_new_keyframe(n_in):
+        if not self.localization_only and self._need_new_keyframe(n_in):
             self._insert_keyframe(frame, timestamp)
         self._record(timestamp, frame)
         self.last_frame = frame
@@ -431,6 +494,8 @@ class SlamSystem:
         self.stats["points_culled"] += n_culled
         self._ensure_vocab()
         self._db_add(slot)
+        if self.cfg.loop_closing:
+            self._try_close_loop(slot)
 
     # ------------------------------------------------- place recognition
     def _load_pretrained_vocab(self):
@@ -568,6 +633,146 @@ class SlamSystem:
             self.reloc_stats.add("Stage", stage)
             self.reloc_stats.add("Accepted", accepted)
             self.reloc_stats.new_line()
+
+    # ------------------------------------------------- loop closing
+    def _count_clip(self, bits: int):
+        if bits:
+            self.stats["capacity_clips"] += 1
+            self.stats["clip_bits"] |= bits
+
+    def _try_close_loop(self, kf_slot: int):
+        """Reference LoopClosing::Run body, once per new keyframe:
+        DetectLoop (group consistency) -> ComputeSim3 -> CorrectLoop
+        (+ SearchAndFuse) -> OptimizeEssentialGraph -> global BA. The query
+        of this keyframe is queued now and read when the next keyframe
+        arrives, as the reference's loop closer runs one keyframe behind."""
+        self._loop_harvest()
+        self._loop_dispatch(kf_slot)
+
+    def _loop_dispatch(self, kf_slot: int):
+        if self.vocab is None or self.n_keyframes < 10:
+            return
+        # >= 10 keyframes inserted since the last closure (reference
+        # LoopClosing.cc:110, mLastLoopKFid + 10)
+        if self.stats["kf_inserted"] - self._last_loop_kf_count < 10 \
+                and self._last_loop_kf_count > 0:
+            return
+        q = self._bow_vec(self.map.kf_desc[kf_slot],
+                          self.map.kf_kp_valid[kf_slot])
+        # covisibility exclusion and the min-score gate (reference
+        # LoopClosing.cc:103-150); the result stays on the device
+        cand, scores, groups = KFDB.detect_loop_candidates_full(
+            self.bow_db, q, self.map, kf_slot)
+        self._loop_pending = (self._reset_gen, kf_slot, cand, scores, groups)
+
+    def _loop_harvest(self):
+        """Read a pending loop-candidate query (ONE packed read) and, when
+        the detector confirms a candidate, close the loop."""
+        pending, self._loop_pending = self._loop_pending, None
+        if pending is None:
+            return
+        gen, kf_slot, cand, scores, groups = pending
+        if gen != self._reset_gen:
+            return
+        # the slot's validity rides the same read (the keyframe may have
+        # been culled since). The reference checks kf_valid only, not that
+        # the slot still holds the same keyframe (kf_seq); so does the port.
+        n = cand.shape[0]
+        packed = torch.cat([
+            cand.double(), scores.double(), groups.reshape(-1).double(),
+            self.map.kf_valid[kf_slot].double()[None]]).tolist()
+        if not packed[-1]:
+            return
+        K = self.map.K
+        cand_groups = [
+            (int(packed[c]),
+             {k for k in range(K) if packed[2 * n + c * K + k]})
+            for c in range(n) if packed[n + c] > 0]
+        confirmed = self.loop_detector.update(cand_groups)
+        if not confirmed:
+            return
+        loop_kf = confirmed[0]
+        fix_scale = self.sensor != Sensor.MONOCULAR
+        R12, t12, s12, n_in = LC.compute_sim3(
+            self.gen, self.cam, self.map, kf_slot, loop_kf,
+            self.cfg.scale_factor, fix_scale)
+        if int(n_in) < LC.MIN_SIM3_INLIERS:
+            return
+        # the verification ladder BEFORE any irreversible correction
+        # (reference LoopClosing.cc:306-400)
+        R12, t12, s12, n_in2, n_total, clip_v = LC.verify_sim3(
+            self.cam, self.map, kf_slot, loop_kf, R12, t12, s12,
+            self.cfg.scale_factor, self.cfg.n_levels, fix_scale)
+        n_in2, n_total, clip_v = torch.stack([
+            n_in2.long(), n_total.long(), clip_v.long()]).tolist()
+        self._count_clip(clip_v << 7)
+        if n_in2 < LC.MIN_SIM3_INLIERS or n_total < 40:
+            self.stats["loops_rejected"] = self.stats.get(
+                "loops_rejected", 0) + 1
+            return
+        self.map, _, clip_e = LC.correct_and_optimize_graph(
+            self.map, kf_slot, loop_kf, R12, t12, s12)
+        # fuse the loop-side landmarks into the corrected neighborhood
+        # (reference LoopClosing.cc:587-613)
+        self.map, n_fused, clip_f = LC.search_and_fuse(
+            self.cam, self.map, kf_slot, loop_kf, self.cfg.scale_factor,
+            self.cfg.n_levels)
+        n_fused, clip_e, clip_f = torch.stack([
+            n_fused.long(), clip_e.long(), clip_f.long()]).tolist()
+        self._count_clip((clip_e << 6) | (clip_f << 8))
+        # global BA in bounded chunks between frames; a newer closure
+        # supersedes a pending one (reference mnFullBAIdx)
+        self._start_chunked_gba()
+        self.loop_detector.reset()
+        self.last_loop_kf = kf_slot
+        self._last_loop_kf_count = self.stats["kf_inserted"]
+        self.stats["loops_closed"] += 1
+        self.stats["loop_points_fused"] = self.stats.get(
+            "loop_points_fused", 0) + n_fused
+
+    # ------------------------------------------------- chunked global BA
+    def _start_chunked_gba(self):
+        prob, clipped = LC.gba_problem(self.cam, self.map,
+                                       self.cfg.scale_factor)
+        self._count_clip(int(clipped) << 5)
+        self._gba = {
+            "prob": prob,
+            "carry": ba_ops.ba_pcg_carry_init(prob),
+            "done": 0,
+            # the snapshot's identity, for the merge
+            "kf_seq": self.map.kf_seq.clone(),
+            "lm_first_seq": self.map.lm_first_seq.clone(),
+            "lm_valid": self.map.lm_valid.clone(),
+        }
+
+    def _advance_gba(self):
+        """Queue ONE bounded chunk of the pending global BA; after the
+        last one, merge the optimized snapshot into the live map, with the
+        keyframes and landmarks created meanwhile carried along."""
+        g = self._gba
+        if g is None:
+            return
+        g["carry"] = ba_ops.ba_pcg_chunk(
+            self.cam, g["prob"], g["carry"],
+            n_outer=self.GBA_ITERS_PER_CHUNK, cg_iters=self.GBA_CG_ITERS)
+        g["done"] += 1
+        if g["done"] < self.GBA_CHUNKS:
+            return
+        pose7, pts, _ = g["carry"]
+        self.map = LC.gba_merge(self.map, pose7, pts, g["kf_seq"],
+                                g["lm_first_seq"], g["lm_valid"])
+        self._gba = None
+        self.stats["gba_completed"] = self.stats.get("gba_completed", 0) + 1
+
+    def shutdown(self):
+        """Reference System::Shutdown: the last keyframe's loop query is
+        read and a pending chunked global BA is run to its end (the
+        reference joins its GBA thread, System.cc:319-334)."""
+        self._loop_harvest()
+        while self._gba is not None:
+            self._advance_gba()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------ trajectory
     def _record(self, timestamp, frame):

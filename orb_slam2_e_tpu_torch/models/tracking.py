@@ -1,10 +1,11 @@
 """Per-frame tracking: motion-model search, reference-keyframe fallback,
-local-map tracking, pose optimization, keyframe insertion and the monocular
+local-map tracking, pose optimization, the localization-only step with
+temporary visual-odometry points, keyframe insertion and the monocular
 two-view initialization.
 
-Port of `orb_slam2_e_tpu/models/tracking.py` (reference Tracking.cc) but
-for localization-only mode (`track_frame_loc`, `track_motion_model_vo`). Searches are dense masked Hamming matrices
-(`ops/matching.py`). `track_frame_fused` keeps the reference's structure:
+Port of `orb_slam2_e_tpu/models/tracking.py` (reference Tracking.cc).
+Searches are dense masked Hamming matrices (`ops/matching.py`).
+`track_frame_fused` and `track_frame_loc` keep the reference's structure:
 both the motion-model and the reference-keyframe stage are computed and the
 outcome is selected with `torch.where`, so the step never waits on the
 device; the host reads the packed flags once per frame.
@@ -255,10 +256,7 @@ def track_frame_fused(cam: Camera, cfg: TrackConfig, state: MapState,
     tracking, visibility counters, keyframe-policy statistic and the
     next-frame velocity. Returns (state, frame, velocity7', flags) with
     flags = [ok, n_inliers, ref_matches, clipped] int32 (one host read)."""
-    Rv, tv = lie.pose7_unpack(velocity7)
-    Rl, tl = lie.pose7_unpack(last_frame.pose7)
-    pred7 = (lie.pose7_pack(*lie.se3_compose(Rv, tv, Rl, tl))
-             if have_velocity else last_frame.pose7)
+    pred7, Rl, tl = _predict_pose7(last_frame, velocity7, have_velocity)
 
     f_mm, _, n_in_mm = track_motion_model(cam, cfg, state, frame,
                                           last_frame, pred7)
@@ -282,6 +280,129 @@ def track_frame_fused(cam: Camera, cfg: TrackConfig, state: MapState,
                          torch.where(stage1_ok, n_in, 0).to(_I32),
                          ref_matches.to(_I32), clipped])
     return state, frame_out, vel_new, flags
+
+
+def _predict_pose7(last_frame: Frame, velocity7, have_velocity: bool):
+    """Motion-model prediction velocity * last pose; the last pose itself
+    without a velocity. Returns (pred7, Rl, tl)."""
+    Rl, tl = lie.pose7_unpack(last_frame.pose7)
+    if not have_velocity:
+        return last_frame.pose7, Rl, tl
+    Rv, tv = lie.pose7_unpack(velocity7)
+    return lie.pose7_pack(*lie.se3_compose(Rv, tv, Rl, tl)), Rl, tl
+
+
+# ---------------------------------------------------------------------------
+# Localization-only mode with visual-odometry points (reference mbVO)
+# ---------------------------------------------------------------------------
+
+def track_motion_model_vo(cam: Camera, cfg: TrackConfig, state: MapState,
+                          frame: Frame, last_frame: Frame, pose7_pred):
+    """Motion-model tracking with temporary "visual odometry" points: the
+    last frame's features that carry depth but no landmark are unprojected
+    and matched frame to frame, so tracking survives where the camera
+    leaves the mapped region (reference UpdateLastFrame in localization
+    mode, Tracking.cc:1160-1222; TrackWithMotionModel then sets mbVO =
+    nmatchesMap < 10). The points never enter the map.
+
+    Returns (frame, n_map_inliers, n_total_inliers)."""
+    dev = state.device
+    R, t = lie.pose7_unpack(pose7_pred)
+    # landmark matches: the search of track_motion_model, no rotation check
+    lm_ids = torch.where(last_frame.valid, last_frame.point_ids, INVALID)
+    safe = torch.where(lm_ids >= 0, lm_ids, 0).long()
+    lm_mask = (lm_ids >= 0) & state.lm_valid[safe]
+    best_feat, dists, _ = search_landmarks_projected(
+        cam, cfg, R, t,
+        state.lm_xyz[safe], state.lm_desc[safe], lm_mask,
+        torch.full(safe.shape, 1e9, device=dev),
+        torch.zeros(safe.shape, device=dev), state.lm_normal[safe], frame,
+        radius_scale=cfg.radius_motion, max_hamming=matching.TH_HIGH,
+        ratio=0.9, pred_octave=last_frame.octave, check_view_cos=False)
+    frame = frame._replace(pose7=pose7_pred)
+    frame = bind_matches(frame, lm_ids, best_feat, dists)
+
+    # temporary VO points from the last frame's depth
+    Rl, tl = lie.pose7_unpack(last_frame.pose7)
+    Rwl, twl = lie.se3_inverse(Rl, tl)
+    vo_src = (last_frame.valid & (last_frame.depth > 0)
+              & (last_frame.point_ids < 0))
+    vo_xyz = lie.se3_apply(Rwl, twl, cam_ops.backproject(
+        cam, last_frame.uvr[:, :2], last_frame.depth))
+    uv, z = cam_ops.project(cam, lie.se3_apply(R, t, vo_xyz))
+    proj_ok = vo_src & cam_ops.in_image(cam, uv) & (z > 0)
+    sigma = cfg.scale_factor ** last_frame.octave.to(torch.float32)
+    dmat = matching.hamming_matrix(matching.unpack_desc(last_frame.desc),
+                                   matching.unpack_desc(frame.desc))
+    mask = matching.window_mask(uv, frame.uvr[:, :2],
+                                cfg.radius_motion * sigma)
+    mask &= matching.octave_range_mask(last_frame.octave, frame.octave)
+    mask &= proj_ok[:, None] & frame.valid[None, :]
+    mask &= frame.point_ids[None, :] < 0     # landmark matches come first
+    vo_feat, d1, d2 = matching.masked_best2(dmat, mask)
+    vo_good = (d1 <= matching.TH_HIGH) & (d1.to(torch.float32)
+                                          < 0.9 * d2.to(torch.float32))
+    vo_feat = matching.resolve_duplicates(
+        torch.where(vo_good, vo_feat, INVALID), d1, frame.F)
+    vo_ok = vo_feat >= 0
+    fsafe = torch.where(vo_ok, vo_feat, 0).long()
+
+    # joint pose optimization over map and VO observations
+    pid = frame.point_ids
+    okp = (pid >= 0) & frame.valid
+    psafe = torch.where(okp, pid, 0).long()
+    okp &= state.lm_valid[psafe]
+    obs = pose_opt.PoseObs(
+        uvr=torch.cat([frame.uvr, frame.uvr[fsafe]]),
+        xyz=torch.cat([state.lm_xyz[psafe], vo_xyz]),
+        inv_sigma2=torch.cat([
+            scale_invsigma2(frame.octave, cfg.scale_factor),
+            scale_invsigma2(frame.octave[fsafe], cfg.scale_factor)]),
+        valid=torch.cat([okp, vo_ok]))
+    R1, t1, inlier, n_tot = pose_opt.pose_optimize(cam, R, t, obs)
+    F = frame.F
+    n_map = (inlier[:F] & okp).sum().to(_I32)
+    new_pid = torch.where(okp & ~inlier[:F], INVALID, pid)
+    frame = frame._replace(pose7=lie.pose7_pack(R1, t1), point_ids=new_pid)
+    return frame, n_map, n_tot
+
+
+def track_frame_loc(cam: Camera, cfg: TrackConfig, state: MapState,
+                    frame: Frame, last_frame: Frame, velocity7,
+                    have_velocity: bool, ref_kf):
+    """Localization-only per-frame step (reference "Localization Mode",
+    Tracking.cc:395-485): motion-model tracking with temporary VO points;
+    the local map decides only while enough real map points are in view
+    (vo false). The map is never changed.
+
+    Returns (frame, velocity7', flags) with flags = [ok, n_inliers,
+    ref_matches, clipped, vo, n_total_mm] int32 (one host read)."""
+    pred7, Rl, tl = _predict_pose7(last_frame, velocity7, have_velocity)
+    f_mm, n_map_mm, n_tot_mm = track_motion_model_vo(
+        cam, cfg, state, frame, last_frame, pred7)
+    mm_ok = have_velocity & (n_tot_mm > 20)   # reference: nmatches > 20
+
+    f_rf, _, n_in_rf = track_reference_keyframe(cam, cfg, state, frame,
+                                                ref_kf, last_frame.pose7)
+    f1 = _select(mm_ok, f_mm, f_rf)
+    n_map1 = torch.where(mm_ok, n_map_mm, n_in_rf)
+    stage1_ok = mm_ok | (n_in_rf >= cfg.min_inliers_motion)
+    vo = stage1_ok & (n_map1 < 10)            # reference Tracking.cc:1280
+
+    f2, n_in, _, _, clipped = track_local_map(cam, cfg, state, f1)
+    ok = torch.where(vo, stage1_ok,
+                     stage1_ok & (n_in >= cfg.min_inliers_map))
+    frame_out = _select(stage1_ok, _select(vo, f1, f2), frame)
+    ref_matches = ((state.kf_kp_point[ref_kf] >= 0)
+                   & state.kf_kp_valid[ref_kf]).sum()
+    R_c, t_c = lie.pose7_unpack(frame_out.pose7)
+    R_li, t_li = lie.se3_inverse(Rl, tl)
+    vel_new = lie.pose7_pack(*lie.se3_compose(R_c, t_c, R_li, t_li))
+    flags = torch.stack([ok.to(_I32),
+                         torch.where(vo, n_tot_mm, n_in).to(_I32),
+                         ref_matches.to(_I32), clipped, vo.to(_I32),
+                         n_tot_mm.to(_I32)])
+    return frame_out, vel_new, flags
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,17 @@
-"""Bundle adjustment: Levenberg-Marquardt over cameras + landmarks with a
-dense Schur complement.
+"""Bundle adjustment: Levenberg-Marquardt over cameras + landmarks with
+Schur-complement elimination, in two flavors.
 
-Port of `orb_slam2_e_tpu/ops/ba.py::ba_solve` and its helpers (reference
-Optimizer::LocalBundleAdjustment): two LM phases with outlier
-reclassification between them, Huber kernels in phase 1, the seed-state
-gross-outlier gate, the delayed-accept LM loop, and the reduced camera
-system solved by 32 Jacobi-preconditioned CG iterations.
+Port of `orb_slam2_e_tpu/ops/ba.py`:
+- `ba_solve` (dense Schur, reference Optimizer::LocalBundleAdjustment): two
+  LM phases with outlier reclassification between them, Huber kernels in
+  phase 1, the seed-state gross-outlier gate, the delayed-accept LM loop,
+  and the reduced camera system solved by 32 Jacobi-preconditioned CG
+  iterations;
+- `ba_solve_pcg` / `ba_pcg_chunk` (matrix-free Schur, reference
+  Optimizer::GlobalBundleAdjustemnt): S x is computed from the observation
+  arrays with scatter-adds and solved by block-Jacobi-preconditioned CG.
+  `ba_pcg_chunk` runs a bounded number of LM iterations from a carry, the
+  unit of the chunked global BA. This path is float32 throughout.
 
 Arithmetic choices, matching the reference:
 - everything is float32 with TF32 off, including the one-hot camera
@@ -334,5 +340,166 @@ def ba_solve(cam: Camera, prob: BAProblem, iters_phase1: int = 5,
     final_inlier = ((chi2 <= _chi2_thresholds(prob_in)) & ~behind
                     & prob_in.obs_valid)
     _, _, cost, _ = _weights(p, r, behind, False, None)
+    return BAResult(cam_pose7=pose7, points=pts, obs_inlier=final_inlier,
+                    final_cost=cost)
+
+
+# ---------------------------------------------------------------------------
+# Matrix-free Schur PCG (global BA)
+# ---------------------------------------------------------------------------
+
+def _scatter_rows(n: int, idx: torch.Tensor, vals: torch.Tensor):
+    """`zeros((n,) + vals.shape[1:]).at[idx].add(vals)`."""
+    out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+                      device=vals.device)
+    return out.index_add_(0, idx, vals)
+
+
+def _schur_matvec(x, prob: BAProblem, Jc, Jp, w, Hcc_l, Hpp_inv, psum=None):
+    """S @ x without materializing S. x: (C, 6). `psum` is the collective
+    of the sharded path (applied to the point-space and camera-space
+    partial sums); None on one device."""
+    C = x.shape[0]
+    P = Hpp_inv.shape[0]
+    oc, op = prob.obs_cam.long(), prob.obs_point.long()
+    Jcx = torch.einsum('oij,oj->oi', Jc, x[oc])                   # (O, 3)
+    y = _scatter_rows(P, op, torch.einsum('oij,oi->oj',
+                                          Jp * w[:, None, None], Jcx))
+    if psum is not None:
+        y = psum(y)
+    z = torch.einsum('pij,pj->pi', Hpp_inv, y)                    # (P, 3)
+    Jpz = torch.einsum('oij,oj->oi', Jp, z[op])                   # (O, 3)
+    wc = _scatter_rows(C, oc, torch.einsum('oij,oi->oj',
+                                           Jc * w[:, None, None], Jpz))
+    if psum is not None:
+        wc = psum(wc)
+    return torch.einsum('cij,cj->ci', Hcc_l, x) - wc
+
+
+def _pcg_lm_step(cam: Camera, prob: BAProblem, carry, cg_iters: int,
+                 robust: bool, psum):
+    """One LM iteration of the matrix-free Schur PCG solver; carry =
+    (cam_pose7, points, lambda). Returns (carry', cost of the trial)."""
+    C = prob.cam_pose7.shape[0]
+    P = prob.points.shape[0]
+    pose7, pts, lam = carry
+    dt, dev = pts.dtype, pts.device
+    oc, op = prob.obs_cam.long(), prob.obs_point.long()
+    R, t = lie.pose7_unpack(pose7)
+    p = prob._replace(cam_pose7=pose7, points=pts)
+    r, Jc, Jp, behind = _residual_jacobians(cam, R, t, p)
+    w, _, cost, _ = _weights(p, r, behind, robust)
+    if psum is not None:
+        cost = psum(cost)       # accept/reject must agree across shards
+    wJc = Jc * w[:, None, None]
+    wJp = Jp * w[:, None, None]
+    Hcc = _scatter_rows(C, oc, torch.einsum('oij,oik->ojk', wJc, Jc))
+    bc = _scatter_rows(C, oc, torch.einsum('oij,oi->oj', wJc, r))
+    Hpp = _scatter_rows(P, op, torch.einsum('oij,oik->ojk', wJp, Jp))
+    bp = _scatter_rows(P, op, torch.einsum('oij,oi->oj', wJp, r))
+    if psum is not None:
+        Hcc, bc, Hpp, bp = psum(Hcc), psum(bc), psum(Hpp), psum(bp)
+    Hcc_l = Hcc + torch.diag_embed(
+        lam * Hcc.diagonal(dim1=1, dim2=2) + 1e-8)
+    Hpp_l = Hpp + torch.diag_embed(
+        lam * Hpp.diagonal(dim1=1, dim2=2) + 1e-8)
+    Hpp_inv = _inv3x3(Hpp_l)
+    # rhs = -(bc - Hcp Hpp^-1 bp); gauge: zero rhs of the fixed cameras
+    z0 = torch.einsum('pij,pj->pi', Hpp_inv, bp)
+    Jpz = torch.einsum('oij,oj->oi', Jp, z0[op])
+    red = _scatter_rows(C, oc, torch.einsum('oij,oi->oj', wJc, Jpz))
+    if psum is not None:
+        red = psum(red)
+    free = prob.cam_free.to(dt)[:, None]
+    rhs = -(bc - red) * free
+
+    # block-Jacobi preconditioner
+    M_inv = torch.linalg.inv_ex(
+        Hcc_l + torch.eye(6, dtype=dt, device=dev) * 1e-6)[0]
+
+    def matvec(x):
+        return _schur_matvec(x * free, prob, Jc, Jp, w, Hcc_l, Hpp_inv,
+                             psum) * free
+
+    def prec(x):
+        return torch.einsum('cij,cj->ci', M_inv, x) * free
+
+    # PCG, a fixed number of iterations, masked dofs
+    zero = torch.zeros((), dtype=dt, device=dev)
+    x = torch.zeros_like(rhs)
+    rcg = rhs - matvec(x)
+    zc = prec(rcg)
+    pdir = zc
+    rz = torch.sum(rcg * zc)
+    for _ in range(cg_iters):
+        Ap = matvec(pdir)
+        denom = torch.sum(pdir * Ap)
+        alpha = torch.where(torch.abs(denom) > 1e-12, rz / denom, zero)
+        x = x + alpha * pdir
+        rcg = rcg - alpha * Ap
+        zc = prec(rcg)
+        rz_new = torch.sum(rcg * zc)
+        beta = torch.where(torch.abs(rz) > 1e-12, rz_new / rz, zero)
+        pdir = zc + beta * pdir
+        rz = rz_new
+    dxc = x * free
+    Jcx = torch.einsum('oij,oj->oi', Jc, dxc[oc])
+    yb = _scatter_rows(P, op, torch.einsum('oij,oi->oj', wJp, Jcx))
+    if psum is not None:
+        yb = psum(yb)
+    dxp = -torch.einsum('pij,pj->pi', Hpp_inv, bp + yb)
+
+    pose_n, pts_n = _apply_updates(pose7, pts, dxc, dxp, prob.point_valid)
+    Rn, tn = lie.pose7_unpack(pose_n)
+    pn = prob._replace(cam_pose7=pose_n, points=pts_n)
+    rn, _, _, behind_n = _residual_jacobians(cam, Rn, tn, pn)
+    cost_n = _weights(pn, rn, behind_n, robust)[2]
+    if psum is not None:
+        cost_n = psum(cost_n)
+    accept = cost_n < cost
+    pose7 = torch.where(accept, pose_n, pose7)
+    pts = torch.where(accept, pts_n, pts)
+    lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-9, 1e6)
+    return (pose7, pts, lam), cost_n
+
+
+def ba_pcg_carry_init(prob: BAProblem):
+    """Initial (pose, points, lambda) carry of the chunked PCG bundle
+    adjustment."""
+    return (prob.cam_pose7, prob.points,
+            torch.tensor(1e-4, dtype=prob.points.dtype,
+                         device=prob.points.device))
+
+
+def ba_pcg_chunk(cam: Camera, prob: BAProblem, carry, n_outer: int = 2,
+                 cg_iters: int = 30, robust: bool = True):
+    """Run `n_outer` LM iterations of the matrix-free PCG solver from
+    `carry` and return the new carry: the bounded unit of work of the
+    abortable global BA (one chunk rides behind each tracked frame;
+    dropping the carry aborts). Nothing in a chunk is read by the host."""
+    for _ in range(n_outer):
+        carry, _ = _pcg_lm_step(cam, prob, carry, cg_iters, robust, None)
+    return carry
+
+
+def ba_solve_pcg(cam: Camera, prob: BAProblem, n_outer: int = 10,
+                 cg_iters: int = 30, robust: bool = True,
+                 psum=None) -> BAResult:
+    """LM with the matrix-free Schur product and a block-Jacobi PCG camera
+    solve. `psum` is reserved for observation arrays sharded over devices
+    (not ported: pass None)."""
+    carry = ba_pcg_carry_init(prob)
+    for _ in range(n_outer):
+        carry, _ = _pcg_lm_step(cam, prob, carry, cg_iters, robust, psum)
+    pose7, pts, _ = carry
+    R, t = lie.pose7_unpack(pose7)
+    p = prob._replace(cam_pose7=pose7, points=pts)
+    r, _, _, behind = _residual_jacobians(cam, R, t, p)
+    chi2 = torch.sum(r * r, -1) * prob.obs_inv_sigma2
+    final_inlier = ((chi2 <= _chi2_thresholds(prob)) & ~behind
+                    & prob.obs_valid)
+    cost = _weights(p, r, behind, False)[2]
+    if psum is not None:
+        cost = psum(cost)
     return BAResult(cam_pose7=pose7, points=pts, obs_inlier=final_inlier,
                     final_cost=cost)

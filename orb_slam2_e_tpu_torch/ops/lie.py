@@ -1,11 +1,16 @@
-"""SO(3) / SE(3) operations on batched torch tensors.
+"""SO(3) / SE(3) / Sim(3) operations on batched torch tensors.
 
-Port of the parts of `orb_slam2_e_tpu/ops/lie.py` the RGB-D path reaches,
-with the same conventions:
+Port of `orb_slam2_e_tpu/ops/lie.py`, with the same conventions:
 - rotations are (..., 3, 3) matrices; quaternions (..., 4) are (w, x, y, z);
-- SE(3) tangents are (..., 6) = [omega, upsilon];
-- poses are Tcw: x_cam = R @ x_world + t; the pool format is
-  (..., 7) = [qw qx qy qz tx ty tz].
+- SE(3) tangents are (..., 6) = [omega, upsilon], Sim(3) tangents (..., 7)
+  = [omega, upsilon, sigma];
+- poses are Tcw: x_cam = R @ x_world + t; the pool formats are
+  (..., 7) = [qw qx qy qz tx ty tz] and, for Sim(3),
+  (..., 8) = [qw qx qy qz tx ty tz s].
+
+Nothing here writes in place, so every function can be differentiated in
+forward mode and batched (`torch.func.jacfwd`, `torch.func.vmap`), which
+the pose graph and the Sim(3) refinement do.
 
 Small-angle branches are `torch.where` selections on quantities computed
 before any sqrt, as in the reference, so both branches stay finite.
@@ -94,6 +99,22 @@ def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
             + c[..., None, None] * W2)
 
 
+def so3_left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    """Inverse left Jacobian of SO(3)."""
+    theta2 = torch.sum(w * w, dim=-1)
+    small = theta2 < 1e-10
+    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(theta2_safe)
+    W = so3_hat(w)
+    W2 = W @ W
+    half_t = theta * 0.5
+    sin_half = torch.where(small, torch.ones_like(theta), torch.sin(half_t))
+    cot_term = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - half_t * torch.cos(half_t) / sin_half) / theta2_safe)
+    return (_eye3(w, W.shape) - 0.5 * W + cot_term[..., None, None] * W2)
+
+
 # ---------------------------------------------------------------------------
 # Quaternions (w, x, y, z)
 # ---------------------------------------------------------------------------
@@ -101,6 +122,17 @@ def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     q = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=_EPS)
     return torch.where(q[..., :1] < 0, -q, q)
+
+
+def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    w1, x1, y1, z1 = q1.unbind(-1)
+    w2, x2, y2, z2 = q2.unbind(-1)
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], dim=-1)
 
 
 def mat_from_quat(q: torch.Tensor) -> torch.Tensor:
@@ -166,6 +198,12 @@ def se3_exp(xi: torch.Tensor):
     return so3_exp(w), _matvec(so3_left_jacobian(w), v)
 
 
+def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(R, t) -> tangent (..., 6) [omega, upsilon]."""
+    w = so3_log(R)
+    return torch.cat([w, _matvec(so3_left_jacobian_inv(w), t)], dim=-1)
+
+
 def se3_inverse(R: torch.Tensor, t: torch.Tensor):
     Rt = R.transpose(-1, -2)
     return Rt, -_matvec(Rt, t)
@@ -193,3 +231,109 @@ def pose7_identity(shape=(), *, device, dtype=torch.float32):
     p = torch.zeros(tuple(shape) + (7,), dtype=dtype, device=device)
     p[..., 0] = 1.0
     return p
+
+
+# ---------------------------------------------------------------------------
+# Sim(3)
+# ---------------------------------------------------------------------------
+
+def sim3_exp(xi: torch.Tensor):
+    """Tangent (..., 7) [omega, upsilon, sigma] -> (R, t, s) (Strasdat's
+    Sim3 exp: t = W(sigma, theta) upsilon). Every small-angle / small-scale
+    case is a `torch.where` over branches that are all finite."""
+    w, v, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    R = so3_exp(w)
+    s = torch.exp(sigma)
+    theta2 = torch.sum(w * w, dim=-1)
+    small_t = theta2 < 1e-10
+    theta = torch.sqrt(torch.where(small_t, torch.ones_like(theta2), theta2))
+    W = so3_hat(w)
+    W2 = W @ W
+    one = torch.ones_like(theta)
+
+    small_s = torch.abs(sigma) < 1e-5
+    sig = torch.where(small_s, one, sigma)
+
+    A_ss = torch.where(small_t, 0.5 * one,
+                       (1 - torch.cos(theta)) / theta ** 2)
+    B_ss = torch.where(small_t, one / 6.0,
+                       (theta - torch.sin(theta)) / theta ** 3)
+    C_gen = torch.where(small_s, one, (s - 1.0) / sig)
+    a = s * torch.sin(theta)
+    b = s * torch.cos(theta)
+    c2 = theta ** 2 + sig ** 2
+    A_gen = (a * sig + (1.0 - b) * theta) / (theta * c2)
+    B_gen = (C_gen - ((b - 1.0) * sig + a * theta) / c2) / theta ** 2
+    A_t0 = torch.where(small_s, 0.5 * one,
+                       ((sig - 1.0) * s + 1.0) / sig ** 2)
+    B_t0 = torch.where(small_s, one / 6.0,
+                       (s * (0.5 * sig ** 2 - sig + 1.0) - 1.0) / sig ** 3)
+
+    A = torch.where(small_s & small_t, 0.5 * one,
+                    torch.where(small_s, A_ss,
+                                torch.where(small_t, A_t0, A_gen)))
+    B = torch.where(small_s & small_t, one / 6.0,
+                    torch.where(small_s, B_ss,
+                                torch.where(small_t, B_t0, B_gen)))
+    C = torch.where(small_s, one, C_gen)
+
+    Wmat = (C[..., None, None] * _eye3(xi, W.shape)
+            + A[..., None, None] * W + B[..., None, None] * W2)
+    return R, _matvec(Wmat, v), s
+
+
+def _sim3_W(w, sigma):
+    """W(sigma, theta) of sim3_exp, column by column: W e_i is the
+    translation of exp([w, e_i, sigma])."""
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    cols = []
+    for i in range(3):
+        e = eye[i].expand(w.shape)
+        cols.append(sim3_exp(torch.cat([w, e, sigma[..., None]], dim=-1))[1])
+    return torch.stack(cols, dim=-1)
+
+
+def _solve3x3(M, b):
+    """M^-1 b for (..., 3, 3) systems in closed form (the rows' cross
+    products over the determinant). `torch.linalg.solve` is avoided here:
+    its forward-mode derivative under `torch.func.vmap` returned NaN for
+    some batch elements."""
+    r0, r1, r2 = M[..., 0, :], M[..., 1, :], M[..., 2, :]
+    c0 = torch.linalg.cross(r1, r2)
+    c1 = torch.linalg.cross(r2, r0)
+    c2 = torch.linalg.cross(r0, r1)
+    det = torch.sum(r0 * c0, dim=-1, keepdim=True)
+    return (c0 * b[..., 0:1] + c1 * b[..., 1:2] + c2 * b[..., 2:3]) / det
+
+
+def sim3_log(R, t, s):
+    """(R, t, s) -> tangent (..., 7): inverts sim3_exp by solving
+    W v = t."""
+    w = so3_log(R)
+    sigma = torch.log(s)
+    v = _solve3x3(_sim3_W(w, sigma), t)
+    return torch.cat([w, v, sigma[..., None]], dim=-1)
+
+
+def sim3_apply(R, t, s, p):
+    return s[..., None] * _matvec(R, p) + t
+
+
+def sim3_inverse(R, t, s):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return Rt, -s_inv[..., None] * _matvec(Rt, t), s_inv
+
+
+def sim3_compose(R1, t1, s1, R2, t2, s2):
+    """S1 * S2 (apply S2 first): (s1 R1)(s2 R2 x + t2) + t1."""
+    return R1 @ R2, s1[..., None] * _matvec(R1, t2) + t1, s1 * s2
+
+
+def sim8_pack(R, t, s):
+    return torch.cat([quat_from_mat(R), t, s[..., None]], dim=-1)
+
+
+def sim8_unpack(p8):
+    return (mat_from_quat(quat_normalize(p8[..., :4])), p8[..., 4:7],
+            p8[..., 7])

@@ -1,9 +1,10 @@
 """Synthetic scenes with exact ground truth, numpy only.
 
-Port of `orb_slam2_e_tpu/utils/synthetic.py` (`SyntheticScene` and
-`orbit_trajectory`): textured squares rendered along a known trajectory,
-with a matching depth map for RGB-D. The reference builds the orbit's yaw
-with its JAX `lie.so3_exp`; here it is Rodrigues' formula in float32 numpy.
+Port of `orb_slam2_e_tpu/utils/synthetic.py`: textured squares rendered
+along a known trajectory, with a matching depth map for RGB-D; the orbit
+and, for loop closure, a ring scene with a circle trajectory that revisits
+its start. The reference builds the orbit's yaw with its JAX `lie.so3_exp`;
+here it is Rodrigues' formula in float32 numpy.
 """
 
 from __future__ import annotations
@@ -98,6 +99,46 @@ class SyntheticScene:
                 continue
             dm[y0:y1, x0:x1] = z[i]
         return dm
+
+
+def make_ring_scene(n_points=600, seed=0, ring_radius=9.0, band_height=2.5,
+                    **kwargs) -> SyntheticScene:
+    """Scene whose points lie on a cylindrical band around the origin, for
+    `circle_trajectory`: the camera travels a circle looking outward and
+    sees its start again. `band_height` is the band's half-height; `height`
+    passes through to SyntheticScene as the image height."""
+    rng = np.random.RandomState(seed)
+    scene = SyntheticScene(n_points=n_points, seed=seed, **kwargs)
+    # keep the squares' apparent size near the default scene's at the
+    # ring's viewing distance, or their 3x3 texture aliases away
+    scene.size = scene.size * max(1.0, (ring_radius - 2.0) / 6.0)
+    theta = rng.uniform(0, 2 * np.pi, n_points)
+    r = ring_radius + rng.uniform(-1.0, 1.0, n_points)
+    y = rng.uniform(-band_height, band_height, n_points)
+    scene.xyz = np.stack([r * np.sin(theta), y, r * np.cos(theta)],
+                         1).astype(np.float32)
+    return scene
+
+
+def circle_trajectory(n_frames=64, radius=2.0, frac=1.1):
+    """Camera centers on a circle of `radius` in the x-z plane, the optical
+    axis pointing radially outward; `frac` > 1 closes the loop and keeps
+    going, so the revisit lasts several keyframes. Returns ([(R, t)] Tcw
+    poses, (N, 3) camera centers)."""
+    poses, centers = [], []
+    for k in range(n_frames):
+        th = 2 * np.pi * frac * k / n_frames
+        c = np.array([radius * np.sin(th), 0.0, radius * np.cos(th)],
+                     np.float32)
+        # camera axes in world coordinates: z outward, x tangent, y world y
+        zax = np.array([np.sin(th), 0.0, np.cos(th)], np.float32)
+        xax = np.array([np.cos(th), 0.0, -np.sin(th)], np.float32)
+        yax = np.array([0.0, 1.0, 0.0], np.float32)
+        R = np.stack([xax, yax, zax], 1).T
+        t = -R @ c
+        poses.append((R.astype(np.float32), t.astype(np.float32)))
+        centers.append(c)
+    return poses, np.stack(centers)
 
 
 def orbit_trajectory(n_frames=30, radius=0.8, forward=0.02):

@@ -207,7 +207,7 @@ def test_import_and_one_frame_leave_jax_out(tmp_path):
         "(R, t), = orbit_trajectory(n_frames=1)[0]\n"
         "cam = Camera.create(fx=130, fy=130, cx=80, cy=60, bf=40.0, "
         "width=160, height=120)\n"
-        "cfg = S.SystemConfig(pipeline=False, loop_closing=False, "
+        "cfg = S.SystemConfig(pipeline=False, loop_closing=True, "
         "n_features=300, n_levels=2, max_keyframes=8, max_points=1024)\n"
         "img = scene.render(R, t)\n"
         "s = S.SlamSystem(cam, cfg, S.Sensor.RGBD, device='cpu')\n"
@@ -229,33 +229,70 @@ def test_import_and_one_frame_leave_jax_out(tmp_path):
     assert res.stdout.split()[-2:] == ["False", "False"], res.stdout
 
 
-# Each kind is refused with NotImplementedError naming its ROADMAP item.
-# The sensors are ported now; their kinds check that each still refuses an
-# unported mode: the FEM mode on mono, loc/VO mode on stereo.
+# Each kind that is not ported is refused with NotImplementedError naming
+# its ROADMAP item; the sensors check that each still refuses an unported
+# mode (the FEM mode on mono, the pipelined loop on stereo). Loop closing
+# and localization-only mode are ported: their kinds check that what was
+# refused before now constructs and switches.
 _REFUSALS = {
     "mono": (Sensor.MONOCULAR, {"deformable": True}, None),
-    "stereo": (Sensor.STEREO, {"mapping": False}, None),
-    "loop_closing": (Sensor.RGBD, {"loop_closing": True}, None),
+    "stereo": (Sensor.STEREO, {"pipeline": True}, None),
     "deformable": (Sensor.RGBD, {"deformable": True}, None),
     "pipeline": (Sensor.RGBD, {"pipeline": True}, None),
-    "no_mapping": (Sensor.RGBD, {"mapping": False}, None),
-    "localization_mode": (Sensor.MONOCULAR, {},
-                          lambda s: s.activate_localization_mode()),
     "save_map": (Sensor.STEREO, {}, lambda s: s.save_map("m.npz")),
     "load_map": (Sensor.RGBD, {}, lambda s: s.load_map("m.npz")),
 }
 
 
-@pytest.mark.parametrize("kind", list(_REFUSALS))
+def _toggle_localization(s):
+    s.activate_localization_mode()
+    on = s.localization_only
+    s.deactivate_localization_mode()
+    return on and not s.localization_only
+
+
+_PORTED = {
+    "loop_closing": (Sensor.RGBD, {"loop_closing": True},
+                     lambda s: s.cfg.loop_closing and s._gba is None
+                     and s.loop_detector.groups == []),
+    "no_mapping": (Sensor.RGBD, {"mapping": False},
+                   lambda s: s.localization_only and not s.vo_mode),
+    "localization_mode": (Sensor.MONOCULAR, {}, _toggle_localization),
+}
+
+
+@pytest.mark.parametrize("kind", list(_REFUSALS) + list(_PORTED))
 def test_refuses_what_is_not_ported(kind):
-    sensor, extra, action = _REFUSALS[kind]
+    """...and only that."""
+    sensor, extra, action = {**_REFUSALS, **_PORTED}[kind]
     cfg = dict(pipeline=False, loop_closing=False, max_keyframes=8,
                max_points=1024)
     cfg.update(extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+
+    def build_and_act():
         st = SlamSystem(Camera.create(**CAM), SystemConfig(**cfg), sensor,
                         device="cpu")
-        action(st)              # reached by the entry-point refusals only
+        return action(st)       # reached by the entry-point kinds only
+
+    if kind in _PORTED:
+        assert build_and_act()
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_and_act()
+
+
+def test_default_config_constructs():
+    """`SystemConfig(pipeline=False)`, everything else at its default
+    (loop closing on), constructs and takes a frame."""
+    st = SlamSystem(Camera.create(**CAM), SystemConfig(pipeline=False),
+                    Sensor.RGBD, device="cpu")
+    assert st.cfg.loop_closing and st.cfg.mapping
+    scene = SyntheticScene(**SCENE)
+    (R, t), = orbit_trajectory(n_frames=1)[0]
+    assert st.track_rgbd(scene.render(R, t), scene.depth_map(R, t),
+                         0.0) is not None
+    st.shutdown()
+    assert st.stats["loops_closed"] == 0 and st.n_keyframes == 1
 
 
 @pytest.mark.parametrize("sensor", list(Sensor))

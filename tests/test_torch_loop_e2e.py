@@ -1,0 +1,209 @@
+"""The port's loop-closing slice as a whole (CPU): `SlamSystem` with
+`loop_closing` at its default travels 1.1 turns of a circle in the ring
+scene of tests/test_loop_e2e.py, shrunk to the smallest run that still
+closes (320x240, 400 features, 48 frames), and must detect the revisit,
+pass the Sim3 ladder, correct and fuse the map, finish the chunked global
+BA and keep tracking. Then the same system goes on in localization-only
+mode and its map must not change.
+
+Only the port runs here: the reference at the same configuration takes as
+long again. Its outcome was measured once and is held below as constants;
+either package's run is printed by
+
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_loop_e2e.py jax
+    PYTHONPATH=. python tests/test_torch_loop_e2e.py torch
+
+With a third argument, `loop` or `loc`, the script instead runs that phase
+of chip_smoke.py (640x480, 8 levels, 1000 features, default configuration)
+on the CPU with the package named, which is how the reference's outcome
+beside the port's on the card was measured:
+
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_loop_e2e.py jax loop
+"""
+
+import sys
+
+import numpy as np
+import pytest
+
+W, H, FX = 320, 240, 173.3
+N_FRAMES = 48
+SCENE = dict(n_points=700, seed=2, ring_radius=9.0, width=W, height=H,
+             fx=FX, fy=FX, cx=W / 2, cy=H / 2)
+CAM = dict(fx=FX, fy=FX, cx=W / 2, cy=H / 2, bf=40.0, width=W, height=H)
+CFG = dict(max_keyframes=64, max_points=8192, n_features=400, n_levels=4,
+           max_frames_between_kf=4, loop_closing=True, pipeline=False)
+
+# the reference on this configuration (`... test_torch_loop_e2e.py jax`):
+#   tracked 48 keyframes 42 ate 0.0801 loops_closed 1 loop_points_fused 201
+#   gba_completed 1 capacity_clips 0
+# and the port (`... torch`): tracked 48, keyframes 45, ate 0.0976, loops
+# closed 1 (1 more rejected by the ladder), fused 272, gba_completed 1
+REF = dict(tracked=48, keyframes=42, ate=0.0801, loops_closed=1,
+           gba_completed=1)
+# the gates of tests/test_loop_e2e.py (>= 90 of 96 frames, ATE < 0.10 m at
+# 480 px width), scaled to 48 frames and to pixels 1.5x as wide
+MIN_TRACKED = 45
+ATE_MAX = 0.15
+KF_SLACK = 6       # keyframe count against the reference's
+
+
+def run_circle(package: str):
+    """Drive one package's SlamSystem around the circle; returns (system,
+    ate, n_tracked)."""
+    if package == "jax":
+        from orb_slam2_e_tpu.ops.camera import Camera
+        from orb_slam2_e_tpu.models.system import (SlamSystem, SystemConfig,
+                                                   Sensor)
+        from orb_slam2_e_tpu.utils.synthetic import (make_ring_scene,
+                                                     circle_trajectory)
+        from orb_slam2_e_tpu.utils.trajectory import ate_rmse
+        kw = {}
+    else:
+        from orb_slam2_e_tpu_torch.ops.camera import Camera
+        from orb_slam2_e_tpu_torch.models.system import (SlamSystem,
+                                                         SystemConfig, Sensor)
+        from orb_slam2_e_tpu_torch.utils.synthetic import (make_ring_scene,
+                                                           circle_trajectory)
+        from orb_slam2_e_tpu_torch.utils.trajectory import ate_rmse
+        kw = dict(device="cpu")
+    scene = make_ring_scene(**SCENE)
+    poses, centers = circle_trajectory(n_frames=N_FRAMES, radius=2.0,
+                                       frac=1.1)
+    s = SlamSystem(Camera.create(**CAM), SystemConfig(**CFG), Sensor.RGBD,
+                   **kw)
+    for k, (R, t) in enumerate(poses):
+        s.track_rgbd(scene.render(R, t), scene.depth_map(R, t), k / 30.0)
+    s.shutdown()
+    _, _, twc = s.get_trajectory()
+    twc = np.asarray(twc)
+    ate = ate_rmse(twc, centers[-len(twc):], with_scale=False)
+    return s, float(ate), len(twc), (scene, poses)
+
+
+@pytest.fixture(scope="module")
+def circle():
+    import _torch_port      # noqa: F401  (keeps torch's thread pool small)
+    return run_circle("torch")
+
+
+@pytest.mark.e2e
+def test_port_closes_the_loop(circle):
+    s, ate, n_tracked, _ = circle
+    st = s.stats
+    assert st["loops_closed"] >= REF["loops_closed"], st
+    assert st["gba_completed"] >= REF["gba_completed"], st
+    assert st["loop_points_fused"] >= 50, st
+    assert s._gba is None and s._loop_pending is None    # shutdown drained
+    assert n_tracked >= MIN_TRACKED and n_tracked >= REF["tracked"] - 3
+    assert ate < ATE_MAX, ate
+    assert abs(s.n_keyframes - REF["keyframes"]) <= KF_SLACK, s.n_keyframes
+    # the closure left its edge in the map, both ways
+    le = s.map.kf_loop_edge
+    assert int((le >= 0).sum()) >= 2
+    a = int(np.argwhere(le.numpy() >= 0)[0][0])
+    b = int(le[a][le[a] >= 0][0])
+    assert a in le[b].tolist()
+    assert np.isfinite(s.map.kf_pose7.numpy()).all()
+    assert np.isfinite(s.map.lm_xyz.numpy()).all()
+
+
+@pytest.mark.e2e
+def test_localization_mode_after_the_closure(circle):
+    """The closed map, then localization-only mode: frames track, and the
+    map comes out as it went in, field by field."""
+    import torch
+    from orb_slam2_e_tpu_torch.utils.synthetic import circle_trajectory
+    s, _, _, (scene, _) = circle
+    # four more frames along the same circle
+    poses, _ = circle_trajectory(n_frames=N_FRAMES + 4, radius=2.0,
+                                 frac=1.1 * (N_FRAMES + 4) / N_FRAMES)
+    snap = {k: v.clone() for k, v in s.map._asdict().items()}
+    n_kf = s.n_keyframes
+    s.activate_localization_mode()
+    for k in range(N_FRAMES, N_FRAMES + 4):
+        R, t = poses[k]
+        assert s.track_rgbd(scene.render(R, t), scene.depth_map(R, t),
+                            k / 30.0) is not None
+    for k, v in s.map._asdict().items():
+        assert torch.equal(v, snap[k]), k
+    assert s.n_keyframes == n_kf
+    s.deactivate_localization_mode()
+    assert not s.localization_only
+
+
+def _package(package: str):
+    if package == "jax":
+        from orb_slam2_e_tpu.ops.camera import Camera
+        from orb_slam2_e_tpu.models import system
+        from orb_slam2_e_tpu.utils.trajectory import ate_rmse
+        return Camera, system, ate_rmse, {}
+    from orb_slam2_e_tpu_torch.ops.camera import Camera
+    from orb_slam2_e_tpu_torch.models import system
+    from orb_slam2_e_tpu_torch.utils.trajectory import ate_rmse
+    return Camera, system, ate_rmse, dict(device="cpu")
+
+
+def run_chip_phase(package: str, phase: str):
+    """chip_smoke.py's loop or localization phase on the CPU."""
+    import chip_smoke as cs
+    Camera, system, ate_rmse, kw = _package(package)
+
+    def feed(s, scene, poses, centers, lo, hi):
+        cen, vo = [], []
+        for k in range(lo, hi):
+            R, t = poses[k]
+            pose = s.track_rgbd(cs.grey(scene, R, t), scene.depth_map(R, t),
+                                k / 30.0)
+            cen.append(None if pose is None else
+                       -np.asarray(pose[0], np.float64).T
+                       @ np.asarray(pose[1], np.float64))
+            if s.vo_mode:
+                vo.append(k)
+        ok = [i for i, c in enumerate(cen) if c is not None]
+        ate = ate_rmse(np.stack([cen[i] for i in ok]),
+                       centers[lo:hi][ok].astype(np.float64), False)
+        return len(ok), round(float(ate), 4), vo
+
+    def landmarks(s):
+        return int(np.asarray(s.map.lm_valid).sum())
+
+    cfg = system.SystemConfig(pipeline=False)
+    ring = cs.make_ring()
+    if phase == "loop":
+        s = system.SlamSystem(Camera.create(**cs.ring_camera()), cfg,
+                              system.Sensor.RGBD, **kw)
+        n, ate, _ = feed(s, *ring, 0, cs.LOOP_FRAMES)
+        s.shutdown()
+        print(package, "loop: tracked", n, "keyframes", s.n_keyframes,
+              "landmarks", landmarks(s), "ate", ate, s.stats)
+        return
+    scene, poses, centers = cs.make_scene()
+    s = system.SlamSystem(
+        Camera.create(fx=cs.FX, fy=cs.FX, cx=cs.WIDTH / 2, cy=cs.HEIGHT / 2,
+                      bf=cs.BF), cfg, system.Sensor.RGBD, **kw)
+    feed(s, scene, poses, centers, 0, 30)
+    before = (s.n_keyframes, landmarks(s))
+    s.activate_localization_mode()
+    print(package, "loc-orbit: tracked, ate, VO frames",
+          feed(s, scene, poses, centers, 30, 30 + cs.LOC_ORBIT_FRAMES),
+          "keyframes, landmarks", before, "->", (s.n_keyframes, landmarks(s)))
+    s = system.SlamSystem(Camera.create(**cs.ring_camera()), cfg,
+                          system.Sensor.RGBD, **kw)
+    n1, n2 = cs.LOC_MAPPED, cs.LOC_MAPPED + cs.LOC_FRAMES
+    feed(s, *ring, 0, n1)
+    before = (s.n_keyframes, landmarks(s))
+    s.activate_localization_mode()
+    print(package, "loc-vo: tracked, ate, VO frames", feed(s, *ring, n1, n2),
+          "keyframes, landmarks", before, "->", (s.n_keyframes, landmarks(s)))
+
+
+if __name__ == "__main__":
+    if len(sys.argv) > 2:
+        run_chip_phase(sys.argv[1], sys.argv[2])
+        sys.exit(0)
+    s, ate, n, _ = run_circle(sys.argv[1])
+    print(sys.argv[1], "tracked", n, "keyframes", s.n_keyframes, "ate",
+          round(ate, 4), {k: s.stats.get(k) for k in (
+              "loops_closed", "loops_rejected", "loop_points_fused",
+              "gba_completed", "capacity_clips", "clip_bits")})
