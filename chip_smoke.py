@@ -9,15 +9,15 @@ against its plain torch twin on the card: the whole 8-level pyramid of a
 entry. Times it by replaying a CUDA graph of back-to-back launches, at level
 0 and for the pyramid, beside the baseline, the wrapper's call rate, the
 plain version and the card's bound for the same work. Then drives
-`SlamSystem` on the card through six phases on synthetic 640x480 scenes
+`SlamSystem` on the card through seven phases on synthetic 640x480 scenes
 (8 levels, 1000 features), each through the entry point a user calls, with
 `SystemConfig(pipeline=False)` and everything else, loop closing included,
 at its default unless said:
 
 1. RGB-D, 30 frames of the benchmark's orbit (camera fx=fy=500);
-2. monocular, the benchmark's configuration (bench.py), 30 frames;
-3. stereo, 20 frames;
-4. RGB-D with frame 20 blanked, 30 frames: one LOST frame, relocalized;
+2. monocular, the benchmark's configuration (bench.py), 20 frames;
+3. stereo, 12 frames;
+4. RGB-D with frame 20 blanked, 25 frames: one LOST frame, relocalized;
 5. loop closing: RGB-D, 96 frames on 1.1 turns of a circle looking outward
    at a ring of points (the scene of tests/test_loop_e2e.py at this image
    size). The revisit is detected, the Sim3 passes the ladder, the map is
@@ -26,7 +26,17 @@ at its default unless said:
 6. localization-only mode: on phase 1's map, 10 more frames of the orbit;
    then a map of the first 12 frames of the circle, and 30 more frames
    that turn away from everything mapped, so that temporary visual-odometry
-   points carry the track. The maps must come out as they went in.
+   points carry the track. The maps must come out as they went in;
+7. the deformable mode. Part A, the dual optimization at the default
+   capacities: a two-keyframe map of a grid surface at rest, a frame that
+   sees the surface deformed, one `_relocalize` with prisms (30 x 30
+   landmarks) and one with hexahedra (18 x 18); the rigid branch must stay
+   under the acceptance bar on every stage and the FEM-regularized one
+   must reach it and deform the map. Part B, the workflow: map a smooth
+   surface at rest (RGB-D, 20 frames), `save_map`, a new system in
+   deformable mode, `load_map`, localization-only mode, and 20 frames of
+   the surface deforming more and more, relocalized again after every
+   true positive (`reloc_test_all_frames`).
 
 Each phase checks tracking, trajectory error, its own gates and that every
 extraction went through the kernel in exactly one launch (the launch count
@@ -74,6 +84,22 @@ LOC_MAPPED, LOC_FRAMES = 12, 30   # of the circle: mapped, then localized
 # the localized frames end on temporary points alone (dead reckoning), so
 # their error grows with every frame off the map
 LOC_VO_ATE_MAX = 0.20
+# the deformable phase. Part A: the field of `synthetic.deformed_grid_map`
+# that separates the branches at these grids (the in-plane waves are short,
+# so that no rigid pose fits more than a patch, and stay inside the
+# projection search's radius, so that the matches are many); with
+# `max_dist` 6 the 8-level pyramid's projection searches take the level-0
+# features of the landmarks from 5 m on
+DEFORM_FIELD = dict(seed=3, tang_wave=(6.3, 5.7), max_dist=6.0)
+DEFORM_GRIDS = {1: dict(n_grid=30, defmag=0.3, tang=0.43),
+                2: dict(n_grid=18, defmag=0.2, tang=0.4)}
+RELOC_GOOD = 50          # the ladder's acceptance bar
+# Part B: frames mapped at rest, then localized while the surface deforms
+# up to this amplitude (metres along z; 0.3 of it in the plane)
+DEFORM_MAPPED, DEFORM_FRAMES, DEFORM_AMPLITUDE = 20, 20, 0.25
+# the reference on the CPU at this configuration relocalizes REF_RELOCS
+# times with REF_TP true positives; the port may fall short by this much
+DEFORM_REF_RELOCS, DEFORM_REF_TP, DEFORM_SLACK = 7, 6, 1
 KERNEL_SOURCE = "orb_slam2_e_tpu_torch/csrc/fast_nms_blur.cu"
 BASELINE_SOURCE = "orb_slam2_e_tpu_torch/csrc/fast_nms_blur_v1.cu"
 REPLACES = "orb_slam2_e_tpu/ops/pallas_kernels.py:148"
@@ -515,7 +541,7 @@ def run_rgbd(scene, poses, centers, n_frames=30):
     return r["launches"], (slam, r["stage_ms"], n_frames)
 
 
-def run_mono(scene, poses, centers, n_frames=30):
+def run_mono(scene, poses, centers, n_frames=20):
     """bench.py's monocular configuration."""
     from orb_slam2_e_tpu_torch.models.system import (SlamSystem,
                                                      SystemConfig, Sensor)
@@ -538,7 +564,7 @@ def run_mono(scene, poses, centers, n_frames=30):
     return r["launches"]
 
 
-def run_stereo(scene, poses, centers, n_frames=20):
+def run_stereo(scene, poses, centers, n_frames=12):
     from orb_slam2_e_tpu_torch.models.system import (SlamSystem,
                                                      SystemConfig, Sensor)
     from orb_slam2_e_tpu_torch.ops.camera import Camera
@@ -559,7 +585,7 @@ def run_stereo(scene, poses, centers, n_frames=20):
     return r["launches"]
 
 
-def run_reloc(scene, poses, centers, n_frames=30):
+def run_reloc(scene, poses, centers, n_frames=25):
     """RGB-D with one blank frame: tracking is lost there and the next
     frame is relocalized (BoW candidates, PnP RANSAC, the rigid ladder)."""
     from orb_slam2_e_tpu_torch.models.system import (SlamSystem,
@@ -712,6 +738,284 @@ def run_loc(orbit, rgbd_state):
     return launches
 
 
+def _deformed_system(el_type, deformable, stats_path):
+    """tests/test_reloc_kpi.py::build_deformed_system at the default
+    capacities, on the card: a LOST monocular system that holds the
+    two-keyframe grid map, a vocabulary trained on the landmarks'
+    descriptors and the recognition database. Returns (system, the unbound
+    query frame, the scene's arrays)."""
+    from orb_slam2_e_tpu_torch.models.system import (SlamSystem,
+                                                     SystemConfig, Sensor,
+                                                     TrackState)
+    from orb_slam2_e_tpu_torch.ops import bow
+    from orb_slam2_e_tpu_torch.ops.camera import Camera
+    from orb_slam2_e_tpu_torch.utils import convert
+    from orb_slam2_e_tpu_torch.utils.synthetic import deformed_grid_map
+    cfg = SystemConfig(pipeline=False, deformable=deformable,
+                       el_type=el_type, stats_reloc_path=stats_path)
+    slam = SlamSystem(Camera.create(fx=FX, fy=FX, cx=WIDTH / 2,
+                                    cy=HEIGHT / 2, width=WIDTH,
+                                    height=HEIGHT),
+                      cfg, Sensor.MONOCULAR, device="cuda")
+    a = deformed_grid_map(
+        max_keyframes=cfg.max_keyframes, max_points=cfg.max_points,
+        max_features=slam.extractor.capacity, fx=FX, cx=WIDTH / 2,
+        cy=HEIGHT / 2, **DEFORM_GRIDS[el_type], **DEFORM_FIELD)
+    slam.map = convert.map_state_from_numpy(a["map"], "cuda")
+    slam._set_vocab(bow.train_vocabulary(a["desc"], k=8, L=2, iters=3,
+                                         device="cuda"))
+    slam.n_keyframes, slam.last_kf_slot = 2, 1
+    slam.state = TrackState.LOST
+    for slot in (0, 1):
+        slam._db_add(slot)
+    return slam, convert.frame_from_numpy(a["frame"], "cuda"), a
+
+
+def _stats_rows(path):
+    with open(path) as f:
+        header, *rows = [line.rstrip("\n").split("\t") for line in f]
+    return [dict(zip(header, r)) for r in rows]
+
+
+def _host_ms(fn, n=5):
+    """Median host ms of fn(), synchronized before and after each call."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def run_deform_ladder(el_type, tmp):
+    """Part A for one element type: the dual optimization on the deformed
+    grid at full width, its gates, and the times of its parts."""
+    from orb_slam2_e_tpu_torch.models import deformable as DEF
+    from orb_slam2_e_tpu_torch.ops import fem, geometry
+    name = f"deform-A el_type {el_type}"
+    # the parts, where the system calls them: arguments kept for the timings
+    seen = {}
+    saved = {"build_mesh": fem.build_mesh, "_ba_solve_nr": DEF._ba_solve_nr,
+             "_mode2_solve": DEF._mode2_solve}
+
+    def keep(key):
+        def wrapper(*args, **kwargs):
+            seen.setdefault(key, (args, kwargs))
+            return saved[key](*args, **kwargs)
+        return wrapper
+
+    fem.build_mesh = keep("build_mesh")
+    DEF._ba_solve_nr = keep("_ba_solve_nr")
+    DEF._mode2_solve = keep("_mode2_solve")
+    try:
+        slam, frame, a = _deformed_system(el_type, True,
+                                          os.path.join(tmp, f"A{el_type}.txt"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, ok = slam._relocalize(frame)
+        torch.cuda.synchronize()
+        reloc_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        fem.build_mesh = saved["build_mesh"]
+        DEF._ba_solve_nr = saved["_ba_solve_nr"]
+        DEF._mode2_solve = saved["_mode2_solve"]
+    row = _stats_rows(slam.cfg.stats_reloc_path)[-1]
+    stages = [s for s in (1, 2, 3) if row[f"nGoodR_S{s}"] != ""]
+    n_r = [int(row[f"nGoodR_S{s}"]) for s in stages]
+    n_nr = [int(row[f"nGoodNR_S{s}"]) for s in stages]
+    n = a["n"]
+    moved = (slam.map.lm_xyz[:n].cpu() - torch.from_numpy(a["pts"])).norm(
+        dim=1)
+    flagged = slam.map.lm_rigid[:n].cpu() == 2
+    print(f"[{name}] {n} landmarks, PnP inliers {row['Inliers_PnP_R']}, "
+          f"stages {stages}: nGoodR {n_r}, nGoodNR {n_nr}, accepted "
+          f"{row['Accepted']} at S{row['Stage']}; lm_rigid == 2 on "
+          f"{int(flagged.sum())}, moved {int((moved > 0).sum())} "
+          f"(by more than 0.1 mm: {int((moved > 1e-4).sum())}, farthest "
+          f"{float(moved.max()):.4f} m)")
+    expect(all(r < RELOC_GOOD for r in n_r), f"{name}: rigid reached the "
+           f"bar: {n_r}")
+    expect(max(n_nr) >= RELOC_GOOD, f"{name}: non-rigid stayed under the "
+           f"bar: {n_nr}")
+    expect(ok and row["Accepted"] == "1", f"{name}: not accepted: {row}")
+    expect(int((flagged & (moved > 0)).sum()) > n // 2,
+           f"{name}: {int((flagged & (moved > 0)).sum())} of {n} landmarks "
+           "flagged non-rigid and moved")
+    expect(bool(torch.isfinite(out.pose7).all())
+           and bool(torch.isfinite(slam.map.lm_xyz).all()),
+           f"{name}: pose or map not finite")
+
+    # the same frame with deformable=False: the rigid ladder alone
+    rigid, frame_r, _ = _deformed_system(el_type, False,
+                                         os.path.join(tmp, f"R{el_type}.txt"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, ok_r = rigid._relocalize(frame_r)
+    torch.cuda.synchronize()
+    rigid_ms = (time.perf_counter() - t0) * 1e3
+    row_r = _stats_rows(rigid.cfg.stats_reloc_path)[-1]
+    print(f"[{name}] deformable=False: accepted {row_r['Accepted']} at "
+          f"S{row_r['Stage']}, nGoodR "
+          f"{[row_r[f'nGoodR_S{s}'] for s in (1, 2, 3)]}")
+    expect(not ok_r, f"{name}: the rigid ladder alone relocalized")
+
+    # the parts, timed on the arguments of the run above
+    (pts, uv), mesh_kw = seen["build_mesh"]
+    cam, prob, mesh, parent_map, w_se = seen["_ba_solve_nr"][0]
+    ke = fem.element_stiffness_batch(mesh)
+    node_pos = fem.node_positions(mesh, prob.points[parent_map])
+    times = {
+        "delaunay (host)": _host_ms(lambda: geometry.delaunay(uv)),
+        "build_mesh with delaunay (host)": _host_ms(
+            lambda: fem.build_mesh(pts, uv, **mesh_kw)),
+        "element_stiffness_batch": time_ms(
+            lambda: fem.element_stiffness_batch(mesh), n=10, rounds=3),
+        "strain_energy": time_ms(
+            lambda: fem.strain_energy(mesh, ke, node_pos), n=20, rounds=3),
+        "_ba_solve_nr (10 + 10 LM)": _host_ms(
+            lambda: DEF._ba_solve_nr(cam, prob, mesh, parent_map, w_se), 3),
+    }
+    if "_mode2_solve" in seen:
+        m2 = seen["_mode2_solve"][0]
+        times["_mode2_solve (64 CG)"] = _host_ms(
+            lambda: DEF._mode2_solve(*m2), 3)
+        print(f"[{name}] mode-2 mesh: {m2[0].u0.shape[0]} node slots, "
+              f"{int(m2[0].elem_valid.sum())} elements")
+    times["_relocalize deformable=True"] = reloc_ms
+    times["_relocalize deformable=False"] = rigid_ms
+    print(f"[{name}] mesh: {int(mesh.n_nodes_active)} nodes, "
+          f"{int(mesh.elem_valid.sum())} elements of {mesh.elements.shape[0]}"
+          f" slots, ke_all {ke.numel() * 4 / 1e6:.1f} MB")
+    for key, ms in times.items():
+        print(f"[{name}] {key}: {ms:.2f} ms")
+    for col in ("timeR_S1", "timeNR_S1"):
+        print(f"[{name}] {col} {float(row[col]) * 1e3:.2f} ms (first call)")
+
+
+def surface_scene():
+    """Part B's scene: the orbit's scene with its squares set onto a smooth
+    height field, and the field that deforms it."""
+    scene, poses, centers = make_scene()
+    x, y = scene.xyz[:, 0], scene.xyz[:, 1]
+    scene.xyz[:, 2] = 6.5 + 2.0 * np.sin(0.9 * x + 0.3) * np.cos(1.0 * y)
+    rest = scene.xyz.copy()
+    field = np.stack([0.3 * np.sin(0.9 * y + 1.0),
+                      0.3 * np.cos(0.8 * x - 0.5),
+                      np.sin(0.7 * x) * np.cos(0.6 * y)], 1).astype(
+        np.float32)
+    return scene, poses, centers, rest, field
+
+
+def run_deform_workflow(tmp):
+    """Part B: map at rest, save, load into a deformable system, localize
+    on the deforming surface with a relocalization after every TP."""
+    from orb_slam2_e_tpu_torch.models.system import (SlamSystem,
+                                                     SystemConfig, Sensor)
+    from orb_slam2_e_tpu_torch.ops.camera import Camera
+    from orb_slam2_e_tpu_torch.utils import map_io
+    scene, poses, centers, rest, field = surface_scene()
+    cam = Camera.create(fx=FX, fy=FX, cx=WIDTH / 2, cy=HEIGHT / 2, bf=BF)
+    n1, n2 = DEFORM_MAPPED, DEFORM_MAPPED + DEFORM_FRAMES
+    slam = SlamSystem(cam, SystemConfig(pipeline=False), Sensor.RGBD,
+                      device="cuda")
+    inputs = [(grey(scene, R, t), scene.depth_map(R, t))
+              for R, t in poses[:n1]]
+    r = drive("deform-map", slam, inputs, centers[:n1], with_scale=False)
+    launches = r["launches"]
+    expect(len(r["tracked"]) >= n1 - 1, f"deform-map tracked {r['tracked']}")
+    expect(r["ate"] < ATE_MAX, f"deform-map ATE {r['ate']}")
+    slam.shutdown()
+
+    path = os.path.join(tmp, "surface_map.npz")
+    save_ms = _host_ms(lambda: slam.save_map(path), 3)
+    size = os.path.getsize(path)
+    back, extra = map_io.load_map(path, device="cuda")
+    for k, v in slam.map._asdict().items():
+        got = getattr(back, k)
+        expect(got.dtype == v.dtype and torch.equal(got, v),
+               f"deform: saved field {k} reads back differently")
+    expect(int(extra["n_keyframes"]) == slam.n_keyframes
+           and "voc_nodes_packed" in extra, f"deform: extras {sorted(extra)}")
+
+    loc = SlamSystem(cam, SystemConfig(
+        pipeline=False, deformable=True, reloc_test_all_frames=True,
+        stats_reloc_path=os.path.join(tmp, "B.txt")), Sensor.RGBD,
+        device="cuda")
+    load_ms = _host_ms(lambda: loc.load_map(path), 3)
+    print(f"[deform-io] save_map {save_ms:.1f} ms, load_map {load_ms:.1f} ms "
+          f"(with the database refill), file {size} bytes "
+          f"({slam.n_keyframes} keyframes, {int(slam.map.lm_valid.sum())} "
+          f"landmarks, capacities {slam.map.K} x {slam.map.F}, "
+          f"{slam.map.P})")
+    expect(loc.n_keyframes == slam.n_keyframes
+           and loc.frame_id == slam.frame_id, "deform: counters not loaded")
+    loc.activate_localization_mode()
+    rest_map = loc.map.lm_xyz.clone()
+    inputs = []
+    for k, (R, t) in enumerate(poses[n1:n2]):
+        scene.xyz = rest + DEFORM_AMPLITUDE * k / (DEFORM_FRAMES - 1) * field
+        inputs.append((grey(scene, R, t), scene.depth_map(R, t)))
+    r = drive("deform-loc", loc, inputs, centers[n1:n2], with_scale=False,
+              first_frame=n1)
+    launches += r["launches"]
+    rows = _stats_rows(loc.cfg.stats_reloc_path)
+    nr_won = [row["Frame"] for row in rows if row["Accepted"] == "1" and any(
+        row[f"nGoodNR_S{s}"] not in ("", "-1")
+        and int(row[f"nGoodNR_S{s}"]) >= (RELOC_GOOD if s == 3 else 10)
+        for s in (1, 2, 3))]
+    moved = (loc.map.lm_xyz - rest_map).norm(dim=1)
+    for row in rows:
+        shown = ", ".join(
+            f"{c} {row[c]}" for c in row if c.startswith("nGood")
+            or c in ("KF_candidates", "Inliers_PnP_R", "Stage", "Accepted"))
+        print(f"[deform-loc] attempt at frame {row['Frame']}: {shown}")
+    nr_ms = [float(row[f"timeNR_S{s}"]) * 1e3 for row in rows
+             for s in (1, 2, 3) if row[f"timeNR_S{s}"] not in ("", "0.0")]
+    print(f"[deform-loc] tracked {len(r['tracked'])} of {DEFORM_FRAMES}, "
+          f"relocs {loc.stats['relocs']} of {len(rows)} attempts, kpi "
+          f"tp/fp/fn {loc.kpi.tp}/{loc.kpi.fp}/{loc.kpi.fn}, SE3 ATE "
+          f"{r['ate']:.4f} m; non-rigid branch won at frames {nr_won}; "
+          f"lm_rigid 1 / 2 on {int((loc.map.lm_rigid == 1).sum())} / "
+          f"{int((loc.map.lm_rigid == 2).sum())} landmarks, "
+          f"{int((moved > 0).sum())} moved, farthest "
+          f"{float(moved.max()):.3f} m; timeNR per stage: median "
+          f"{statistics.median(nr_ms):.1f} ms over {len(nr_ms)}")
+    expect(loc.stats["relocs"] >= DEFORM_REF_RELOCS - DEFORM_SLACK,
+           f"deform-loc relocs {loc.stats['relocs']}")
+    expect(loc.kpi.tp >= DEFORM_REF_TP - DEFORM_SLACK,
+           f"deform-loc kpi.tp {loc.kpi.tp}")
+    expect(len(nr_won) >= 1, "deform-loc: the non-rigid branch never won")
+    expect(bool((loc.map.lm_rigid == 2).any()) and bool((moved > 0).any()),
+           "deform-loc: no landmark was deformed")
+    expect(loc.n_keyframes == slam.n_keyframes, "deform-loc inserted a "
+           "keyframe")
+    expect(bool(torch.isfinite(loc.map.lm_xyz).all()),
+           "deform-loc: the map is not finite")
+    expect(launches == n2, f"deform launches {launches}")
+    return launches
+
+
+def run_deform():
+    """The deformable mode on the card: the dual optimization at full
+    width for both element types (no extraction, so no launch), then the
+    save / load / relocalize workflow on a deforming surface."""
+    import tempfile
+    from orb_slam2_e_tpu_torch.ops import geometry, kernels
+    t0 = time.perf_counter()
+    geometry.build()
+    print(f"geometry build: {time.perf_counter() - t0:.2f} s "
+          f"(g++ {' '.join(geometry.GXX_FLAGS)})")
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.fast_nms_blur.launches = 0
+        for el_type in DEFORM_GRIDS:
+            run_deform_ladder(el_type, tmp)
+        expect(kernels.fast_nms_blur.launches == 0,
+               "deform-A extracted a frame")
+        return run_deform_workflow(tmp)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -737,11 +1041,13 @@ def main() -> int:
     record["launches"] = (
         n_rgbd + phase(run_mono, *orbit) + phase(run_stereo, *orbit)
         + phase(run_reloc, *orbit) + phase(run_loop)
-        + phase(run_loc, orbit, rgbd_state))
-    # one launch per extraction: 30 + 30 + 2 x 20 + 30 on the orbit, 96
-    # around the ring, 10 + 12 + 30 in localization-only mode
-    expect(record["launches"] == 130 + LOOP_FRAMES + LOC_ORBIT_FRAMES
-           + LOC_MAPPED + LOC_FRAMES, f"launch total {record['launches']}")
+        + phase(run_loc, orbit, rgbd_state) + phase(run_deform))
+    # one launch per extraction: 30 + 20 + 2 x 12 + 25 on the orbit, 96
+    # around the ring, 10 + 12 + 30 in localization-only mode, 20 + 20 on
+    # the deforming surface (none in the deformable phase's part A)
+    expect(record["launches"] == 99 + LOOP_FRAMES + LOC_ORBIT_FRAMES
+           + LOC_MAPPED + LOC_FRAMES + DEFORM_MAPPED + DEFORM_FRAMES,
+           f"launch total {record['launches']}")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print(card_line())

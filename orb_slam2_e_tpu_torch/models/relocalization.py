@@ -4,7 +4,9 @@ full-map projection search.
 Port of `orb_slam2_e_tpu/models/relocalization.py` (reference
 Tracking::Relocalization with the E-extensions: the lowered >= 4 BoW match
 gate, the full-map SearchByProjection after PnP, the S1/S2/S3 ladder). The
-non-rigid branch is not ported (`SlamSystem` refuses `deformable=True`).
+ladder itself, with the rigid and the non-rigid branch of every stage side
+by side, is `SlamSystem._relocalize` / `_dual_optimize`; the non-rigid
+branch is `models/deformable.py`.
 
 The reference's `lax.scan`s become Python loops in the same order: over the
 candidate keyframes, each drawing its PnP sets from the one generator in

@@ -3,9 +3,9 @@
 SLAM has no learned weights; its parameters are the camera, the ORB test
 pattern (bit-identical by construction) and the map state. The camera, a
 frame, a map, extractor output, the recognition database, a bundle-
-adjustment problem with its PCG carry, and the pose graph's arrays cross as
-dicts of numpy arrays keyed by the reference's field (or argument) names,
-e.g.
+adjustment problem with its PCG carry, the pose graph's arrays and a FEM
+mesh cross as dicts of numpy arrays keyed by the reference's field (or
+argument) names, e.g.
 
     {k: np.asarray(v) for k, v in jax_state._asdict().items()}
 
@@ -23,6 +23,7 @@ from ..models.kf_database import BowDatabase
 from ..models.map_state import MapState
 from ..ops.ba import BAProblem
 from ..ops.camera import Camera
+from ..ops.fem import FemMesh
 from ..ops.orb import OrbFeatures
 
 
@@ -82,6 +83,26 @@ def pose_graph_from_numpy(arrays: dict, device) -> tuple:
     """{sim8, kf_valid, fixed, edges_i, edges_j, meas8, edge_valid} -> the
     positional arguments of the pose-graph optimizers."""
     return _tuple(POSE_GRAPH_FIELDS, arrays, device)
+
+
+_MESH_STATIC = ("el_type", "h")      # Python values in both packages
+
+
+def fem_mesh_from_numpy(arrays: dict, device) -> FemMesh:
+    """{field: array, el_type: int, h: float} -> a FemMesh on `device`."""
+    missing = set(FemMesh._fields) - set(arrays)
+    if missing:
+        raise KeyError(f"FemMesh fields missing: {sorted(missing)}")
+    return FemMesh(
+        **{k: torch.from_numpy(np.array(arrays[k], copy=True)).to(device)
+           for k in FemMesh._fields if k not in _MESH_STATIC},
+        el_type=int(arrays["el_type"]), h=float(arrays["h"]))
+
+
+def fem_mesh_to_numpy(mesh: FemMesh) -> dict:
+    """A FemMesh -> {field: numpy array}, `el_type` and `h` as they are."""
+    return {k: (v if k in _MESH_STATIC else v.detach().cpu().numpy())
+            for k, v in mesh._asdict().items()}
 
 
 def to_numpy(state) -> dict:

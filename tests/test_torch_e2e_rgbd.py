@@ -5,6 +5,7 @@ and the state carried across between the two packages."""
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -230,17 +231,14 @@ def test_import_and_one_frame_leave_jax_out(tmp_path):
 
 
 # Each kind that is not ported is refused with NotImplementedError naming
-# its ROADMAP item; the sensors check that each still refuses an unported
-# mode (the FEM mode on mono, the pipelined loop on stereo). Loop closing
-# and localization-only mode are ported: their kinds check that what was
-# refused before now constructs and switches.
+# its ROADMAP item; the sensors check that each still refuses the unported
+# mode (the pipelined loop). Loop closing, localization-only mode, the
+# deformable mode and map save/load are ported: their kinds check that what
+# was refused before now constructs, switches, or writes and reads a map.
 _REFUSALS = {
-    "mono": (Sensor.MONOCULAR, {"deformable": True}, None),
+    "mono": (Sensor.MONOCULAR, {"deformable": True, "pipeline": True}, None),
     "stereo": (Sensor.STEREO, {"pipeline": True}, None),
-    "deformable": (Sensor.RGBD, {"deformable": True}, None),
     "pipeline": (Sensor.RGBD, {"pipeline": True}, None),
-    "save_map": (Sensor.STEREO, {}, lambda s: s.save_map("m.npz")),
-    "load_map": (Sensor.RGBD, {}, lambda s: s.load_map("m.npz")),
 }
 
 
@@ -251,6 +249,20 @@ def _toggle_localization(s):
     return on and not s.localization_only
 
 
+def _save_map(s):
+    with tempfile.TemporaryDirectory() as d:
+        s.save_map(os.path.join(d, "m.npz"))
+        return os.path.getsize(os.path.join(d, "m.npz")) > 0
+
+
+def _load_map(s):
+    with tempfile.TemporaryDirectory() as d:
+        s.save_map(os.path.join(d, "m.npz"))
+        s.state = None
+        s.load_map(os.path.join(d, "m.npz"))
+    return s.state.name == "LOST" and s.map.device.type == "cpu"
+
+
 _PORTED = {
     "loop_closing": (Sensor.RGBD, {"loop_closing": True},
                      lambda s: s.cfg.loop_closing and s._gba is None
@@ -258,6 +270,10 @@ _PORTED = {
     "no_mapping": (Sensor.RGBD, {"mapping": False},
                    lambda s: s.localization_only and not s.vo_mode),
     "localization_mode": (Sensor.MONOCULAR, {}, _toggle_localization),
+    "deformable": (Sensor.RGBD, {"deformable": True, "el_type": 2},
+                   lambda s: s.cfg.deformable and s.cfg.el_type == 2),
+    "save_map": (Sensor.STEREO, {}, _save_map),
+    "load_map": (Sensor.RGBD, {}, _load_map),
 }
 
 
