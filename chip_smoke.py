@@ -9,10 +9,9 @@ against its plain torch twin on the card: the whole 8-level pyramid of a
 entry. Times it by replaying a CUDA graph of back-to-back launches, at level
 0 and for the pyramid, beside the baseline, the wrapper's call rate, the
 plain version and the card's bound for the same work. Then drives
-`SlamSystem` on the card through seven phases on synthetic 640x480 scenes
+`SlamSystem` on the card through eight phases on synthetic 640x480 scenes
 (8 levels, 1000 features), each through the entry point a user calls, with
-`SystemConfig(pipeline=False)` and everything else, loop closing included,
-at its default unless said:
+everything, loop closing included, at its default unless said:
 
 1. RGB-D, 30 frames of the benchmark's orbit (camera fx=fy=500);
 2. monocular, the benchmark's configuration (bench.py), 20 frames;
@@ -36,7 +35,18 @@ at its default unless said:
    surface at rest (RGB-D, 20 frames), `save_map`, a new system in
    deformable mode, `load_map`, localization-only mode, and 20 frames of
    the surface deforming more and more, relocalized again after every
-   true positive (`reloc_test_all_frames`).
+   true positive (`reloc_test_all_frames`);
+8. a sequence from disk through the example programs. 12 frames of the orbit
+   are written as a TUM RGB-D sequence (8-bit grey and 16-bit depth PNG
+   files by the package's own writer, an associations file, a settings
+   YAML with `DepthMapFactor: 5000.0`); every file is decoded by both PNG
+   decoders where libpng built, and the arrays must be equal; then
+   `examples.rgbd_tum.main([...])` reads the sequence, tracks it with the
+   configuration `SystemConfig.from_settings` gives, and writes
+   `CameraTrajectory.txt`, which is read back and held against the orbit.
+   Then `examples.mono_deformable.main([... "--save-map" ...])` on 20 grey
+   frames of the same directory: its `reloc KPI:` line must parse and the
+   map file must load.
 
 Each phase checks tracking, trajectory error, its own gates and that every
 extraction went through the kernel in exactly one launch (the launch count
@@ -79,6 +89,9 @@ BLANK = 20               # the relocalization phase's blanked frame
 LOOP_FX = 260.0 * WIDTH / 480
 LOOP_FRAMES = 96
 LOOP_ATE_MAX = 0.10      # metres, SE3-aligned (the reference's loop gate)
+DISK_FRAMES = 12         # the sequence on disk that rgbd_tum reads
+DISK_MONO_FRAMES = 20    # grey frames of it that mono_deformable reads
+DEPTH_FACTOR = 5000.0    # TUM's: 16-bit depth counts per metre
 LOC_ORBIT_FRAMES = 10    # localization-only frames on the RGB-D phase's map
 LOC_MAPPED, LOC_FRAMES = 12, 30   # of the circle: mapped, then localized
 # the localized frames end on temporary points alone (dead reckoning), so
@@ -1016,6 +1029,192 @@ def run_deform():
         return run_deform_workflow(tmp)
 
 
+DISK_SETTINGS = f"""%YAML:1.0
+# camera of the benchmark orbit, in the cv::FileStorage form of a TUM file
+Camera.fx: {FX}
+Camera.fy: {FX}
+Camera.cx: {WIDTH / 2}
+Camera.cy: {HEIGHT / 2}
+Camera.k1: 0.0
+Camera.k2: 0.0
+Camera.p1: 0.0
+Camera.p2: 0.0
+Camera.k3: 0.0
+Camera.width: {WIDTH}
+Camera.height: {HEIGHT}
+Camera.fps: 30.0
+Camera.RGB: 1
+Camera.bf: {BF}
+ThDepth: 35.0
+DepthMapFactor: {DEPTH_FACTOR}
+ORBextractor.nFeatures: 1000
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+"""
+
+
+def write_tum_sequence(root, scene, poses):
+    """A TUM RGB-D sequence of the orbit under `root`: rgb/ (8-bit grey),
+    depth/ (16-bit, DEPTH_FACTOR counts per metre) for the first
+    DISK_FRAMES frames, rgb.txt over DISK_MONO_FRAMES grey frames,
+    associations.txt and settings.yaml. Returns the written PNG paths and
+    the ms the writer took per file."""
+    from orb_slam2_e_tpu_torch.utils import imageio
+    os.makedirs(os.path.join(root, "rgb"))
+    os.makedirs(os.path.join(root, "depth"))
+    rgb_lines, assoc, paths, write_ms = [], [], [], []
+
+    def write(rel, img):
+        t0 = time.perf_counter()
+        imageio.write_png(os.path.join(root, rel), img)
+        write_ms.append((time.perf_counter() - t0) * 1e3)
+        paths.append(os.path.join(root, rel))
+
+    for k, (R, t) in enumerate(poses[:DISK_MONO_FRAMES]):
+        ts = f"{k / 30.0:.6f}"
+        write(f"rgb/{ts}.png", grey(scene, R, t))
+        rgb_lines.append(f"{ts} rgb/{ts}.png")
+        if k < DISK_FRAMES:
+            counts = np.round(scene.depth_map(R, t) * DEPTH_FACTOR)
+            expect(counts.max() < 65536, "depth does not fit 16 bits")
+            write(f"depth/{ts}.png", counts.astype(np.uint16))
+            assoc.append(f"{ts} rgb/{ts}.png {ts} depth/{ts}.png")
+    with open(os.path.join(root, "rgb.txt"), "w") as f:
+        f.write("# timestamp filename\n" + "\n".join(rgb_lines) + "\n")
+    with open(os.path.join(root, "associations.txt"), "w") as f:
+        f.write("\n".join(assoc) + "\n")
+    with open(os.path.join(root, "settings.yaml"), "w") as f:
+        f.write(DISK_SETTINGS)
+    return paths, statistics.median(write_ms)
+
+
+def check_png_backends(paths):
+    """Which decoder `"auto"` takes; where libpng built, both decoders on
+    every written file, arrays equal; decode ms per file of each."""
+    from orb_slam2_e_tpu_torch.utils import imageio
+    name, why = imageio.auto_backend()
+    why = " ".join(why.split())[:300]    # the compiler's message on one line
+    print(f"[disk] PNG backend \"auto\": {name} ({why})")
+    backends = ("libpng", "numpy") if name == "libpng" else ("numpy",)
+    ms = {b: {"gray8": [], "u16": []} for b in backends}
+    for path in paths:
+        kind = "u16" if os.sep + "depth" + os.sep in path else "gray8"
+        read = imageio.read_u16 if kind == "u16" else imageio.read_gray8
+        got = []
+        for b in backends:
+            t0 = time.perf_counter()
+            got.append(read(path, b))
+            ms[b][kind].append((time.perf_counter() - t0) * 1e3)
+        expect(got[0].shape == (HEIGHT, WIDTH), f"{path}: {got[0].shape}")
+        expect(all(g.dtype == got[0].dtype and np.array_equal(g, got[0])
+                   for g in got[1:]), f"PNG decoders disagree on {path}")
+    for b in backends:
+        print(f"[disk] decode {b}: 8-bit grey "
+              f"{statistics.median(ms[b]['gray8']):.2f} ms, 16-bit depth "
+              f"{statistics.median(ms[b]['u16']):.2f} ms per {WIDTH}x{HEIGHT} "
+              f"file (median of {len(ms[b]['gray8'])} / {len(ms[b]['u16'])})")
+    return name
+
+
+def run_disk(scene, poses, centers):
+    """A sequence on disk through the example programs: what a user of the
+    package runs. Returns the launches of both examples."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+    from orb_slam2_e_tpu_torch.examples import mono_deformable, rgbd_tum
+    from orb_slam2_e_tpu_torch.ops import kernels
+    from orb_slam2_e_tpu_torch.utils import map_io
+    from orb_slam2_e_tpu_torch.utils.trajectory import ate_rmse, load_tum
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        seq, work = os.path.join(tmp, "seq"), os.path.join(tmp, "work")
+        os.makedirs(work)
+        t0 = time.perf_counter()
+        paths, write_ms = write_tum_sequence(seq, scene, poses)
+        print(f"[disk] wrote {len(paths)} PNG files in "
+              f"{time.perf_counter() - t0:.2f} s (rendering included; the "
+              f"writer: median {write_ms:.2f} ms per file)")
+        check_png_backends(paths)
+        settings = os.path.join(seq, "settings.yaml")
+        os.chdir(work)                   # the examples write where they run
+        try:
+            # --- rgbd_tum
+            kernels.fast_nms_blur.launches = 0
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                slam = rgbd_tum.main([settings, seq, os.path.join(
+                    seq, "associations.txt"), "--device", "cuda"])
+            wall = time.perf_counter() - t0
+            n_rgbd = kernels.fast_nms_blur.launches
+            print("".join(f"[disk] rgbd_tum> {ln}\n"
+                          for ln in out.getvalue().splitlines()), end="")
+            ts, twc, _ = load_tum("CameraTrajectory.txt")
+            frames = np.round(ts * 30.0).astype(int)
+            ate = ate_rmse(twc, centers[frames].astype(np.float64), False)
+            off_card = [k for k, v in slam.map._asdict().items()
+                        if v.device.type != "cuda"]
+            off_card += [f"cam.{k}" for k, v in slam.cam._asdict().items()
+                         if v.device.type != "cuda"]
+            off_card += [f"last_frame.{k}" for k, v in
+                         slam.last_frame._asdict().items()
+                         if v.device.type != "cuda"]
+            print(f"[disk] rgbd_tum: {len(ts)} of {DISK_FRAMES} frames in "
+                  f"CameraTrajectory.txt, keyframes {slam.n_keyframes}, "
+                  f"landmarks {int(slam.map.lm_valid.sum())}, SE3 ATE "
+                  f"{ate:.4f} m, {wall:.2f} s with the files' decoding = "
+                  f"{DISK_FRAMES / wall:.2f} frames/s, launches {n_rgbd}; "
+                  f"capacities {slam.map.K} / {slam.map.P}, "
+                  f"depth_map_factor {slam.cfg.depth_map_factor:.6g}")
+            expect(f"Images in the sequence: {DISK_FRAMES}" in out.getvalue(),
+                   "rgbd_tum did not print its sequence line")
+            expect(len(ts) == DISK_FRAMES, f"disk tracked {len(ts)}")
+            expect(ate < ATE_MAX, f"disk ATE {ate}")
+            expect(not off_card, f"disk: tensors off the card: {off_card}")
+            expect((slam.map.K, slam.map.P) == (256, 24576),
+                   "disk: not the default capacities")
+            expect(n_rgbd == DISK_FRAMES, f"disk launches {n_rgbd}")
+            expect(os.path.getsize("KeyFrameTrajectory.txt") > 0,
+                   "rgbd_tum wrote no keyframe trajectory")
+            expect("jax" not in sys.modules, "jax was imported")
+
+            # --- mono_deformable on the grey frames, with --save-map
+            kernels.fast_nms_blur.launches = 0
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                mono = mono_deformable.main(
+                    [settings, seq, "--save-map", "map.npz", "--stats",
+                     "StatsReloc.txt", "--device", "cuda"])
+            wall = time.perf_counter() - t0
+            n_mono = kernels.fast_nms_blur.launches
+            print("".join(f"[disk] mono_deformable> {ln}\n"
+                          for ln in out.getvalue().splitlines()), end="")
+            kpi = re.search(r"^reloc KPI: TP=(\d+) FP=(\d+) FN=(\d+) "
+                            r"precision=([\d.]+) recall=([\d.]+)$",
+                            out.getvalue(), re.M)
+            expect(kpi is not None, "mono_deformable: no reloc KPI line")
+            back, extra = map_io.load_map("map.npz", device="cuda")
+            tracked = sum(p7 is not None for _, p7 in mono.trajectory)
+            print(f"[disk] mono_deformable: {DISK_MONO_FRAMES} frames in "
+                  f"{wall:.2f} s, tracked {tracked}, keyframes "
+                  f"{mono.n_keyframes}, kpi tp/fp/fn "
+                  f"{'/'.join(kpi.groups()[:3])}, map file "
+                  f"{os.path.getsize('map.npz')} bytes, launches {n_mono}")
+            expect(mono.cfg.deformable, "mono_deformable: not deformable")
+            expect(int(extra["n_keyframes"]) == mono.n_keyframes
+                   and (back.K, back.P) == (mono.map.K, mono.map.P),
+                   "mono_deformable: the saved map reads back differently")
+            expect(n_mono == DISK_MONO_FRAMES, f"disk mono launches {n_mono}")
+        finally:
+            os.chdir(cwd)
+    return n_rgbd + n_mono
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1041,12 +1240,15 @@ def main() -> int:
     record["launches"] = (
         n_rgbd + phase(run_mono, *orbit) + phase(run_stereo, *orbit)
         + phase(run_reloc, *orbit) + phase(run_loop)
-        + phase(run_loc, orbit, rgbd_state) + phase(run_deform))
+        + phase(run_loc, orbit, rgbd_state) + phase(run_deform)
+        + phase(run_disk, *orbit))
     # one launch per extraction: 30 + 20 + 2 x 12 + 25 on the orbit, 96
     # around the ring, 10 + 12 + 30 in localization-only mode, 20 + 20 on
-    # the deforming surface (none in the deformable phase's part A)
+    # the deforming surface (none in the deformable phase's part A), 12 + 20
+    # through the examples from disk
     expect(record["launches"] == 99 + LOOP_FRAMES + LOC_ORBIT_FRAMES
-           + LOC_MAPPED + LOC_FRAMES + DEFORM_MAPPED + DEFORM_FRAMES,
+           + LOC_MAPPED + LOC_FRAMES + DEFORM_MAPPED + DEFORM_FRAMES
+           + DISK_FRAMES + DISK_MONO_FRAMES,
            f"launch total {record['launches']}")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -33,8 +33,12 @@ changes the map there. With `deformable=True` an accepted non-rigid
 relocalization still moves the landmarks it tracked and sets their
 `lm_rigid`, as in the reference: that is what the mode is for.
 
-What this port refuses, with NotImplementedError naming the ROADMAP item:
-the pipelined loop.
+The frame loop is synchronous. `SystemConfig.pipeline` keeps the
+reference's field and default and changes nothing here: the reference's
+pipelined loop reads a frame's flags one frame late, so its keyframe
+decisions come one frame after this loop's; with `pipeline=True` the port
+runs the loop the reference itself runs for `reloc_test_all_frames` and
+localization-only mode.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from ..ops import stereo as stereo_ops
 from ..ops.camera import Camera
 from ..ops.orb import OrbExtractor
 from ..utils import map_io
+from ..utils.config import Settings
 from ..utils.stats import RELOC_COLUMNS, RelocKpi, Statistics
 from .frame import Frame, frame_from_features, sample_depth_at
 from .map_state import MapState, INVALID
@@ -89,8 +94,7 @@ class Sensor(enum.Enum):
 
 @dataclasses.dataclass
 class SystemConfig:
-    """The reference's SystemConfig fields and defaults; the options the
-    port does not run are refused by `SlamSystem`."""
+    """The reference's SystemConfig fields and defaults."""
     max_keyframes: int = 256
     max_points: int = 24576
     n_features: int = 1000
@@ -113,21 +117,36 @@ class SystemConfig:
     min_init_points: int = 80
     local_ba: bool = True
     mapping: bool = True
-    pipeline: bool = True
+    pipeline: bool = True                # kept for the reference's field;
+                                         # the loop is synchronous either way
     vocab_path: str = None               # None: the bundled vocabulary
 
-
-_REFUSED = (
-    ("pipeline", True, "the pipelined frame loop (ROADMAP Q1 #8: the "
-                       "synchronous loop is the port's)"),
-)
+    @staticmethod
+    def from_settings(s: Settings, vocab_path: str = None) -> "SystemConfig":
+        return SystemConfig(
+            n_features=s.orb.n_features, scale_factor=s.orb.scale_factor,
+            n_levels=s.orb.n_levels, ini_th_fast=s.orb.ini_th_fast,
+            min_th_fast=s.orb.min_th_fast, th_depth=s.th_depth,
+            # reference Tracking.cc:172-175: mDepthMapFactor = 1/factor and
+            # the RAW depth image is multiplied by it (GrabImageRGBD). The
+            # config stores the MULTIPLIER for raw depth values; track_rgbd
+            # expects raw (e.g. uint16, 5000 per metre) depth maps.
+            depth_map_factor=(1.0 if abs(s.depth_map_factor) < 1e-5
+                              or abs(s.depth_map_factor - 1.0) < 1e-5
+                              else 1.0 / s.depth_map_factor),
+            max_frames_between_kf=int(s.fps),
+            el_type=s.reloc.el_type,
+            reloc_test_all_frames=s.reloc.test_all_frames,
+            n_precision_frames=s.reloc.n_precision_frames,
+            stats_reloc_path=s.stats_reloc,
+            vocab_path=vocab_path)
 
 
 class SlamSystem:
     """SLAM facade. Typical use:
 
-        sys = SlamSystem(cam, SystemConfig(pipeline=False),
-                         Sensor.MONOCULAR, device="cuda", seed=0)
+        sys = SlamSystem(cam, SystemConfig(), Sensor.MONOCULAR,
+                         device="cuda", seed=0)
         for im, ts in frames:
             pose = sys.track_monocular(im, ts)   # (R, t) Tcw or None
         sys.shutdown()                # finishes a pending global BA
@@ -140,10 +159,6 @@ class SlamSystem:
     def __init__(self, cam: Camera, cfg: SystemConfig = SystemConfig(),
                  sensor: Sensor = Sensor.MONOCULAR, *, device,
                  seed: int = 0):
-        for field, refused, what in _REFUSED:
-            if getattr(cfg, field) == refused:
-                raise NotImplementedError(
-                    f"SystemConfig({field}={refused}): {what} is not ported")
         self.device = torch.device(device)
         self.cam = cam.to(self.device)
         self.cfg = cfg

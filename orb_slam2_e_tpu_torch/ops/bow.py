@@ -53,11 +53,13 @@ def _hamming_packed(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 
 def train_vocabulary(descriptors: np.ndarray, k: int = 10, L: int = 4,
-                     iters: int = 8, seed: int = 0, *,
+                     iters: int = 8, seed: int = 0,
+                     doc_ids: np.ndarray = None, verbose: bool = False, *,
                      device) -> Vocabulary:
     """Hierarchical binary k-medians on the host (numpy), the same draw
     and arithmetic as the reference's trainer. descriptors: (N, 32) uint8
-    packed; the idf counts one pseudo-document per 500 descriptors."""
+    packed. doc_ids: (N,) document (source image) of each descriptor for
+    the idf; by default one pseudo-document per 500 descriptors."""
     rng = np.random.RandomState(seed)
     packed = np.ascontiguousarray(descriptors, dtype=np.uint8)
     N = len(packed)
@@ -98,10 +100,15 @@ def train_vocabulary(descriptors: np.ndarray, k: int = 10, L: int = 4,
                 next_assign[sel] = c * k + a
         all_nodes.append(level_nodes)
         assign = next_assign
+        if verbose:
+            print(f"  vocab level {l + 1}/{L}: "
+                  f"{len(np.unique(assign))} live clusters")
     node_bits = np.unpackbits(np.concatenate(all_nodes, axis=0), axis=1,
                               bitorder='little').astype(np.int8)
     W = k ** L
-    docs, doc_idx = np.unique(np.arange(N) // 500, return_inverse=True)
+    if doc_ids is None:
+        doc_ids = np.arange(N) // 500
+    docs, doc_idx = np.unique(doc_ids, return_inverse=True)
     df = np.zeros(W)
     pairs = np.unique(np.stack([doc_idx, assign]), axis=1)
     np.add.at(df, pairs[1], 1.0)
@@ -167,6 +174,12 @@ def vocabulary_from_arrays(d: dict, *, device) -> "Vocabulary | None":
         node_bits=torch.from_numpy(bits).to(device), k=int(d["voc_k"]),
         L=int(d["voc_L"]),
         idf=torch.from_numpy(np.asarray(d["voc_idf"], np.float32)).to(device))
+
+
+def save_vocabulary(path, voc: Vocabulary):
+    """One compressed npz, the reference's format: either package loads
+    the other's file."""
+    np.savez_compressed(path, **vocabulary_to_arrays(voc))
 
 
 def load_vocabulary(path, *, device) -> "Vocabulary | None":

@@ -47,6 +47,20 @@ class Camera(NamedTuple):
             torch.stack([z, self.fy, self.cy], -1),
             torch.stack([z, z, o], -1)], -2)
 
+    @property
+    def baseline(self):
+        return self.bf / self.fx
+
+
+def distort_normalized(cam: Camera, xn: torch.Tensor) -> torch.Tensor:
+    """Apply Brown-Conrady distortion to normalized coords (..., 2)."""
+    x, y = xn[..., 0], xn[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (cam.k1 + r2 * (cam.k2 + r2 * cam.k3))
+    xd = x * radial + 2.0 * cam.p1 * x * y + cam.p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + cam.p1 * (r2 + 2.0 * y * y) + 2.0 * cam.p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
+
 
 def undistort_normalized(cam: Camera, xd: torch.Tensor,
                          iters: int = 8) -> torch.Tensor:
@@ -80,12 +94,27 @@ def undistort_pixels(cam: Camera, uv: torch.Tensor) -> torch.Tensor:
         cam, undistort_normalized(cam, pixel_to_normalized(cam, uv)))
 
 
-def project(cam: Camera, xc: torch.Tensor):
-    """Camera-frame points (..., 3) -> undistorted pixel (..., 2), depth."""
+def _safe_depth(z: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+
+
+def project(cam: Camera, xc: torch.Tensor, distort: bool = False):
+    """Camera-frame points (..., 3) -> pixel (..., 2), depth. Tracking works
+    on undistorted keypoints, hence the default; `distort=True` is the
+    viewer's overlay projection (reference FrameDrawer DistortMapPoint)."""
     z = xc[..., 2]
-    zs = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
-    xn = xc[..., :2] / zs[..., None]
+    xn = xc[..., :2] / _safe_depth(z)[..., None]
+    if distort:
+        xn = distort_normalized(cam, xn)
     return normalized_to_pixel(cam, xn), z
+
+
+def project_stereo(cam: Camera, xc: torch.Tensor):
+    """-> (u, v, ur) (..., 3) and depth, ur = u - bf / z (reference
+    Frame.cc:704-725)."""
+    uv, z = project(cam, xc)
+    ur = uv[..., 0] - cam.bf / _safe_depth(z)
+    return torch.cat([uv, ur[..., None]], dim=-1), z
 
 
 def backproject(cam: Camera, uv: torch.Tensor, z: torch.Tensor):

@@ -219,6 +219,19 @@ def se3_apply(R, t, p):
     return _matvec(R, p) + t
 
 
+def se3_to_mat4(R, t):
+    """(..., 3, 3), (..., 3) -> homogeneous (..., 4, 4)."""
+    bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype,
+                         device=R.device)
+    bottom[..., 0, 3] = 1.0
+    top = torch.cat([R, t[..., :, None]], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def se3_from_mat4(T):
+    return T[..., :3, :3], T[..., :3, 3]
+
+
 def pose7_pack(R, t):
     return torch.cat([quat_from_mat(R), t], dim=-1)
 

@@ -39,6 +39,23 @@ def hamming_matrix(bits_a: torch.Tensor, bits_b: torch.Tensor):
     return (na[:, None] + nb[None, :] - 2.0 * dot).to(torch.int32)
 
 
+def hamming_pairs(bits_a: torch.Tensor, bits_b: torch.Tensor):
+    """Row-wise Hamming distance of aligned pairs: (N, 256) x2 -> (N,)."""
+    return torch.abs(bits_a.to(torch.int32)
+                     - bits_b.to(torch.int32)).sum(-1).to(torch.int32)
+
+
+def mutual_filter(best_ab: torch.Tensor, best_ba: torch.Tensor):
+    """Cross-check: keep a->b only if b->a maps back. (Na,), (Nb,) ->
+    (Na,) bool."""
+    nb = best_ba.shape[0]
+    ok = (best_ab >= 0) & (best_ab < nb)
+    back = torch.where(ok, best_ba[torch.clamp(best_ab, 0, nb - 1).long()],
+                       -2)
+    return ok & (back == torch.arange(best_ab.shape[0],
+                                      device=best_ab.device))
+
+
 def masked_best2(dist: torch.Tensor, mask: torch.Tensor):
     """Per-row best and second-best over masked columns.
 

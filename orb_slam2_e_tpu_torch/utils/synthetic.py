@@ -146,9 +146,12 @@ def circle_trajectory(n_frames=64, radius=2.0, frac=1.1):
     return poses, np.stack(centers)
 
 
-def orbit_trajectory(n_frames=30, radius=0.8, forward=0.02):
+def orbit_trajectory(n_frames=30, radius=0.8, forward=0.02, seed=0,
+                     jitter=0.0):
     """Smooth sideways + forward sweep: ([(R, t)] Tcw poses, (N, 3) camera
-    centers)."""
+    centers). `jitter` turns each camera by a random rotation of that many
+    radians (standard deviation per axis), drawn from `seed`."""
+    rng = np.random.RandomState(seed)
     poses = []
     centers = []
     for k in range(n_frames):
@@ -156,6 +159,8 @@ def orbit_trajectory(n_frames=30, radius=0.8, forward=0.02):
                       forward * k], np.float32)
         yaw = -0.3 * (c[0] / max(radius, 1e-6)) * 0.2
         Rwc = so3_exp_np([0.0, yaw, 0.0])
+        if jitter:
+            Rwc = Rwc @ so3_exp_np(rng.randn(3).astype(np.float32) * jitter)
         R = Rwc.T
         t = -R @ c
         poses.append((R.astype(np.float32), t.astype(np.float32)))

@@ -230,16 +230,18 @@ def test_import_and_one_frame_leave_jax_out(tmp_path):
     assert res.stdout.split()[-2:] == ["False", "False"], res.stdout
 
 
-# Each kind that is not ported is refused with NotImplementedError naming
-# its ROADMAP item; the sensors check that each still refuses the unported
-# mode (the pipelined loop). Loop closing, localization-only mode, the
-# deformable mode and map save/load are ported: their kinds check that what
-# was refused before now constructs, switches, or writes and reads a map.
-_REFUSALS = {
-    "mono": (Sensor.MONOCULAR, {"deformable": True, "pipeline": True}, None),
-    "stereo": (Sensor.STEREO, {"pipeline": True}, None),
-    "pipeline": (Sensor.RGBD, {"pipeline": True}, None),
-}
+# Nothing is refused any more. Every kind was refused once with
+# NotImplementedError naming its ROADMAP item and is ported now: its case
+# checks that what was refused constructs, switches, or writes and reads a
+# map. The last to move were the three `pipeline=True` kinds (the
+# reference's default): the port accepts the flag and runs its synchronous
+# loop.
+_REFUSALS = {}
+
+
+def _pipeline_accepted(s):
+    return (s.cfg.pipeline
+            and s.get_tracking_state() == TrackState.NO_IMAGES_YET)
 
 
 def _toggle_localization(s):
@@ -264,6 +266,10 @@ def _load_map(s):
 
 
 _PORTED = {
+    "mono": (Sensor.MONOCULAR, {"deformable": True, "pipeline": True},
+             _pipeline_accepted),
+    "stereo": (Sensor.STEREO, {"pipeline": True}, _pipeline_accepted),
+    "pipeline": (Sensor.RGBD, {"pipeline": True}, _pipeline_accepted),
     "loop_closing": (Sensor.RGBD, {"loop_closing": True},
                      lambda s: s.cfg.loop_closing and s._gba is None
                      and s.loop_detector.groups == []),
@@ -298,11 +304,11 @@ def test_refuses_what_is_not_ported(kind):
 
 
 def test_default_config_constructs():
-    """`SystemConfig(pipeline=False)`, everything else at its default
-    (loop closing on), constructs and takes a frame."""
-    st = SlamSystem(Camera.create(**CAM), SystemConfig(pipeline=False),
-                    Sensor.RGBD, device="cpu")
-    assert st.cfg.loop_closing and st.cfg.mapping
+    """`SystemConfig()`, everything at its default (loop closing on, the
+    reference's `pipeline=True`), constructs and takes a frame."""
+    st = SlamSystem(Camera.create(**CAM), SystemConfig(), Sensor.RGBD,
+                    device="cpu")
+    assert st.cfg.loop_closing and st.cfg.mapping and st.cfg.pipeline
     scene = SyntheticScene(**SCENE)
     (R, t), = orbit_trajectory(n_frames=1)[0]
     assert st.track_rgbd(scene.render(R, t), scene.depth_map(R, t),

@@ -1,0 +1,170 @@
+"""The port's stereo, RGB-D and KITTI / EuRoC monocular example programs on
+sequences on disk, on the CPU, each beside the reference's example on the
+same files: the same `Images in the sequence:` line, the same output files,
+and trajectories within the tolerance of the port's end-to-end tests.
+
+The sequences are those of tests/test_dataset_drivers.py (320x240, 3
+levels, 400 features, 8 frames); the examples run at the default capacities,
+since settings files carry none. The TUM monocular, deformable and
+streaming examples are in test_torch_examples_mono.py and
+test_torch_examples_deformable.py.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+import _torch_port
+from _torch_examples import (  # noqa: F401  (fixtures are used by name)
+    BF, DEPTH_FACTOR, FX, H, N, W, _centres_kitti, _centres_tum, _dirs,
+    _hold_trajectories, _line, _run_port, _run_ref, _same_lines, _settings,
+    euroc_seq, kitti_seq, tum_rgbd_seq)
+from orb_slam2_e_tpu_torch.examples import (mono_euroc, mono_kitti, rgbd_tum,
+                                            stereo_euroc, stereo_kitti)
+
+
+def test_stereo_kitti_example(tmp_path, kitti_seq, monkeypatch):
+    port, ref = _dirs(tmp_path)
+    settings = _settings(tmp_path / "settings.yaml", bf=BF)
+    out_p, _, sysm = _run_port(stereo_kitti, [settings, kitti_seq], port,
+                               monkeypatch)
+    out_r, _ = _run_ref("stereo_kitti.py", [settings, kitti_seq], ref,
+                        monkeypatch)
+    _same_lines(out_p, out_r)
+    assert _line(out_p, "Images") == f"Images in the sequence: {N}"
+    got = (port / "CameraTrajectory.txt").read_text().splitlines()
+    want = (ref / "CameraTrajectory.txt").read_text().splitlines()
+    assert len(got) == len(want) == N
+    assert all(len(ln.split()) == 12 for ln in got)      # KITTI 3x4 rows
+    _hold_trajectories(_centres_kitti(port / "CameraTrajectory.txt"),
+                       _centres_kitti(ref / "CameraTrajectory.txt"))
+    assert sysm.sensor.name == "STEREO" and sysm.cfg.pipeline
+
+
+def test_mono_kitti_example(tmp_path, kitti_seq, monkeypatch):
+    port, ref = _dirs(tmp_path)
+    settings = _settings(tmp_path / "settings.yaml")
+    out_p, _, _ = _run_port(mono_kitti, [settings, kitti_seq,
+                                         port / "kf.txt"], port, monkeypatch)
+    out_r, _ = _run_ref("mono_kitti.py", [settings, kitti_seq,
+                                          ref / "kf.txt"], ref, monkeypatch)
+    _same_lines(out_p, out_r.replace(str(ref), str(port)),
+                exact=("Images in the sequence:", "trajectory saved to"),
+                timed=("median tracking time:", "mean tracking time:"))
+    assert (port / "kf.txt").exists() and (ref / "kf.txt").exists()
+    assert sorted(os.listdir(port)) == sorted(os.listdir(ref))
+
+
+def test_mono_euroc_example(tmp_path, euroc_seq, monkeypatch):
+    port, ref = _dirs(tmp_path)
+    settings = _settings(tmp_path / "settings.yaml")
+    args = [settings, euroc_seq, euroc_seq / "timestamps.txt"]
+    out_p, _, _ = _run_port(mono_euroc, args + [port / "kf.txt"], port,
+                            monkeypatch)
+    out_r, _ = _run_ref("mono_euroc.py", args + [ref / "kf.txt"], ref,
+                        monkeypatch)
+    _same_lines(out_p, out_r.replace(str(ref), str(port)),
+                exact=("Images in the sequence:", "trajectory saved to"),
+                timed=("median tracking time:", "mean tracking time:"))
+    assert sorted(os.listdir(port)) == sorted(os.listdir(ref)) == [
+        "FrameTrajectory.txt", "kf.txt"]
+    # without the timestamps file the example reads data.csv
+    out_p, _, _ = _run_port(mono_euroc, [settings, euroc_seq], port,
+                            monkeypatch)
+    assert _line(out_p, "Images") == f"Images in the sequence: {N}"
+    assert (port / "KeyFrameTrajectory.txt").exists()
+
+
+def _rectifier_blocks():
+    def mat(name, arr, rows, cols):
+        flat = ", ".join(f"{v:.6f}" for v in np.asarray(arr).ravel())
+        return (f"{name}: !!opencv-matrix\n   rows: {rows}\n"
+                f"   cols: {cols}\n   dt: d\n   data: [{flat}]\n")
+    K = [FX, 0, W / 2, 0, FX, H / 2, 0, 0, 1]
+    P_l = [FX, 0, W / 2, 0, 0, FX, H / 2, 0, 0, 0, 1, 0]
+    P_r = [FX, 0, W / 2, -BF, 0, FX, H / 2, 0, 0, 0, 1, 0]
+    return (f"LEFT.width: {W}\nLEFT.height: {H}\n"
+            f"RIGHT.width: {W}\nRIGHT.height: {H}\n"
+            + mat("LEFT.K", K, 3, 3) + mat("LEFT.D", [0] * 5, 1, 5)
+            + mat("LEFT.R", np.eye(3), 3, 3) + mat("LEFT.P", P_l, 3, 4)
+            + mat("RIGHT.K", K, 3, 3) + mat("RIGHT.D", [0] * 5, 1, 5)
+            + mat("RIGHT.R", np.eye(3), 3, 3) + mat("RIGHT.P", P_r, 3, 4))
+
+
+def test_stereo_euroc_example_with_rectifier(tmp_path, euroc_seq,
+                                            monkeypatch):
+    """The StereoRectifier path: LEFT. / RIGHT. K, D, R, P blocks (zero
+    distortion and identity R: the maps are still built and applied)."""
+    port, ref = _dirs(tmp_path)
+    settings = _settings(tmp_path / "settings.yaml", bf=BF,
+                         extra=_rectifier_blocks())
+    args = [settings, euroc_seq, euroc_seq / "timestamps.txt"]
+    out_p, _, _ = _run_port(stereo_euroc, args, port, monkeypatch)
+    out_r, _ = _run_ref("stereo_euroc.py", args, ref, monkeypatch)
+    assert "WARNING" not in out_p
+    _same_lines(out_p, out_r, timed=("median tracking time:",
+                                     "mean tracking time:"))
+    got, want = (_centres_tum(d / "CameraTrajectory.txt")
+                 for d in (port, ref))
+    assert len(got[0]) == len(want[0]) == N
+    _hold_trajectories(got, want)
+    # without the blocks the example says so, as the reference's
+    plain = _settings(tmp_path / "plain.yaml", bf=BF)
+    out_p, _, _ = _run_port(stereo_euroc, [plain, euroc_seq], port,
+                            monkeypatch)
+    assert out_p.splitlines()[0] == (
+        "WARNING: no LEFT.*/RIGHT.* rectification blocks in settings; "
+        "assuming pre-rectified input")
+
+
+def test_rgbd_tum_example(tmp_path, tum_rgbd_seq, monkeypatch):
+    port, ref = _dirs(tmp_path)
+    settings = _settings(tmp_path / "settings.yaml", bf=BF,
+                         extra=f"DepthMapFactor: {DEPTH_FACTOR}\n")
+    args = [settings, tum_rgbd_seq, tum_rgbd_seq / "assoc.txt"]
+    out_p, _, sysm = _run_port(rgbd_tum, args, port, monkeypatch)
+    out_r, _ = _run_ref("rgbd_tum.py", args, ref, monkeypatch)
+    _same_lines(out_p, out_r)
+    assert sysm.cfg.depth_map_factor == 1.0 / DEPTH_FACTOR
+    assert (sysm.map.K, sysm.map.P) == (256, 24576)     # the defaults
+    assert sorted(os.listdir(port)) == sorted(os.listdir(ref)) == [
+        "CameraTrajectory.txt", "KeyFrameTrajectory.txt"]
+    got, want = (_centres_tum(d / "CameraTrajectory.txt")
+                 for d in (port, ref))
+    assert len(got[0]) == len(want[0]) == N
+    _hold_trajectories(got, want)
+    n_kf = [len((d / "KeyFrameTrajectory.txt").read_text().splitlines())
+            for d in (port, ref)]
+    assert n_kf[0] >= 2 and abs(n_kf[0] - n_kf[1]) <= 2, n_kf
+
+
+def test_no_card_means_torchs_own_error(tmp_path, tum_rgbd_seq,
+                                        monkeypatch):
+    """`--device` defaults to cuda, and nothing falls back to the CPU."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    settings = _settings(tmp_path / "settings.yaml", bf=BF)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+        rgbd_tum.main([str(settings), str(tum_rgbd_seq),
+                       str(tum_rgbd_seq / "assoc.txt")])
+
+
+@pytest.mark.cuda
+def test_rgbd_tum_example_on_the_card(tmp_path, tum_rgbd_seq, monkeypatch):
+    """chip_smoke's `run_disk` path at the test's size: the example on its
+    default device, every tensor on the card, one launch per frame."""
+    from orb_slam2_e_tpu_torch.ops import kernels
+    _torch_port.cuda_device()
+    settings = _settings(tmp_path / "settings.yaml", bf=BF,
+                         extra=f"DepthMapFactor: {DEPTH_FACTOR}\n")
+    monkeypatch.chdir(tmp_path)
+    kernels.fast_nms_blur.launches = 0
+    sysm = rgbd_tum.main([str(settings), str(tum_rgbd_seq),
+                          str(tum_rgbd_seq / "assoc.txt")])
+    assert kernels.fast_nms_blur.launches == N
+    assert all(v.device.type == "cuda" for v in sysm.map._asdict().values())
+    ts, _ = _centres_tum(tmp_path / "CameraTrajectory.txt")
+    assert len(ts) == N
