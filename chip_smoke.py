@@ -10,19 +10,20 @@ entry. Times it by replaying a CUDA graph of back-to-back launches, at level
 0 and for the pyramid, beside the baseline, the wrapper's call rate, the
 plain version and the card's bound for the same work. Then drives
 `SlamSystem` on the card through eight phases on synthetic 640x480 scenes
-(8 levels, 1000 features), each through the entry point a user calls, with
-everything, loop closing included, at its default unless said:
+(8 levels, 1000 features), and the parallel package through a ninth, each
+through the entry point a user calls, with everything, loop closing
+included, at its default unless said:
 
 1. RGB-D, 30 frames of the benchmark's orbit (camera fx=fy=500);
 2. monocular, the benchmark's configuration (bench.py), 20 frames;
-3. stereo, 12 frames;
+3. stereo, 10 frames;
 4. RGB-D with frame 20 blanked, 25 frames: one LOST frame, relocalized;
 5. loop closing: RGB-D, 96 frames on 1.1 turns of a circle looking outward
    at a ring of points (the scene of tests/test_loop_e2e.py at this image
    size). The revisit is detected, the Sim3 passes the ladder, the map is
    corrected and fused, the essential graph optimized, and the global BA
    runs in five chunks behind the frames that follow;
-6. localization-only mode: on phase 1's map, 10 more frames of the orbit;
+6. localization-only mode: on phase 1's map, 6 more frames of the orbit;
    then a map of the first 12 frames of the circle, and 30 more frames
    that turn away from everything mapped, so that temporary visual-odometry
    points carry the track. The maps must come out as they went in;
@@ -46,11 +47,22 @@ everything, loop closing included, at its default unless said:
    `CameraTrajectory.txt`, which is read back and held against the orbit.
    Then `examples.mono_deformable.main([... "--save-map" ...])` on 20 grey
    frames of the same directory: its `reloc KPI:` line must parse and the
-   map file must load.
+   map file must load;
+9. the parallel package: `BatchedTracker` with 8 lanes on phase 1's map,
+   bench.py's lane protocol (staggered starts, bootstrapped from the
+   tracked poses, one warm-up and 12 timed steps), every step one kernel
+   launch over the 8 pyramids (64 levels, held bit for bit against the
+   plain twin lane by lane and timed against its bound) and the tracking
+   under torch.vmap; every lane held to the single-lane `track_frame_fused`
+   on the same features; the batched and the single-lane rate and the
+   launches of a step. Then, on a one-rank NCCL group, the distributed BA
+   of phase 1's global BA problem against the single solve, the sharded
+   BoW query against the database's, and the dryrun twin.
 
 Each phase checks tracking, trajectory error, its own gates and that every
 extraction went through the kernel in exactly one launch (the launch count
-is zeroed before the phase and read after it). Prints per-stage median ms,
+is zeroed before the phase and read after it; in phase 9 one launch per
+step for all lanes). Prints per-stage median ms,
 the card's name and power limit, a JSON line describing the kernel, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, without that
 line, when there is no CUDA device or any phase fails. Imports no JAX.
@@ -92,7 +104,8 @@ LOOP_ATE_MAX = 0.10      # metres, SE3-aligned (the reference's loop gate)
 DISK_FRAMES = 12         # the sequence on disk that rgbd_tum reads
 DISK_MONO_FRAMES = 20    # grey frames of it that mono_deformable reads
 DEPTH_FACTOR = 5000.0    # TUM's: 16-bit depth counts per metre
-LOC_ORBIT_FRAMES = 10    # localization-only frames on the RGB-D phase's map
+LOC_ORBIT_FRAMES = 6     # localization-only frames on the RGB-D phase's map
+STEREO_FRAMES = 10
 LOC_MAPPED, LOC_FRAMES = 12, 30   # of the circle: mapped, then localized
 # the localized frames end on temporary points alone (dead reckoning), so
 # their error grows with every frame off the map
@@ -113,6 +126,20 @@ DEFORM_MAPPED, DEFORM_FRAMES, DEFORM_AMPLITUDE = 20, 20, 0.25
 # the reference on the CPU at this configuration relocalizes REF_RELOCS
 # times with REF_TP true positives; the port may fall short by this much
 DEFORM_REF_RELOCS, DEFORM_REF_TP, DEFORM_SLACK = 7, 6, 1
+# the parallel phase: bench.py's lanes (B = 8, staggered starts, one
+# warm-up and PAR_STEPS timed steps) on the RGB-D phase's map
+PAR_LANES, PAR_STEPS = 8, 12
+# batched lane vs single-lane step on the same features: flags equal, poses
+# within this (the pose LM sums in another order under torch.vmap)
+PAR_POSE_ATOL = 1e-4
+# ... and at most this share of the visibility decisions (a landmark seen or
+# matched in a step) flipped: on the card a pose 1e-5 apart can move a
+# landmark across the frustum's border or a match across its threshold
+PAR_FLIP_SHARE = 1e-3
+# batched vs one-image resize of a level (0..255 grey): a few float32 ulps
+PAR_RESIZE_ATOL = 1e-3
+# distributed BA vs the single solve on one rank (tests/test_parallel.py)
+DIST_POSE_ATOL, DIST_POINT_ATOL = 5e-4, 5e-3
 KERNEL_SOURCE = "orb_slam2_e_tpu_torch/csrc/fast_nms_blur.cu"
 BASELINE_SOURCE = "orb_slam2_e_tpu_torch/csrc/fast_nms_blur_v1.cu"
 REPLACES = "orb_slam2_e_tpu/ops/pallas_kernels.py:148"
@@ -296,9 +323,13 @@ def time_kernels(levels, baseline):
                 for _ in range(count)]
 
     def ours(sets):
+        offsets = kernels.pyramid_layout([tuple(i.shape)
+                                          for i in sets[0][0]])[0]
+
         def enqueue(i):
             imgs, out = sets[i % len(sets)]
-            kernels.launch_into(imgs, out[0], out[1], TH_HIGH, TH_LOW)
+            kernels.launch_into(imgs, out[0], out[1], TH_HIGH, TH_LOW,
+                                offsets)
         return enqueue
 
     def theirs(sets):
@@ -577,7 +608,7 @@ def run_mono(scene, poses, centers, n_frames=20):
     return r["launches"]
 
 
-def run_stereo(scene, poses, centers, n_frames=12):
+def run_stereo(scene, poses, centers, n_frames=STEREO_FRAMES):
     from orb_slam2_e_tpu_torch.models.system import (SlamSystem,
                                                      SystemConfig, Sensor)
     from orb_slam2_e_tpu_torch.ops.camera import Camera
@@ -641,6 +672,11 @@ def run_loop(seed=0):
     part_ms = {k: [] for k in parts}
     saved = {k: getattr(loop_closing, k) for k in parts}
 
+    # every Sim3 attempt's counts: compute_sim3's inliers, then, where it
+    # passed, verify_sim3's inliers and projected matches, then, where the
+    # loop closed, the landmarks fused
+    attempts = []
+
     def timed(key):
         def wrapper(*args, **kwargs):
             torch.cuda.synchronize()
@@ -648,6 +684,14 @@ def run_loop(seed=0):
             out = saved[key](*args, **kwargs)
             torch.cuda.synchronize()
             part_ms[key].append((time.perf_counter() - t0) * 1e3)
+            if key == "compute_sim3":
+                attempts.append({"frame": slam.frame_id, "kf": int(args[3]),
+                                 "loop_kf": int(args[4]),
+                                 "n_in": int(out[3])})
+            elif key == "verify_sim3":
+                attempts[-1].update(n_in2=int(out[3]), n_total=int(out[4]))
+            elif key == "search_and_fuse":
+                attempts[-1]["n_fused"] = int(out[1])
             return out
         return wrapper
 
@@ -662,6 +706,12 @@ def run_loop(seed=0):
         if v:
             print(f"[loop] {key}: median {statistics.median(v):.2f} ms over "
                   f"{len(v)} calls")
+    for a in attempts:
+        print(f"[loop] Sim3 attempt behind frame {a['frame']}: keyframe "
+              f"{a['kf']} -> {a['loop_kf']}: n_in {a['n_in']}, n_in2 "
+              f"{a.get('n_in2', '-')}, n_total {a.get('n_total', '-')}, "
+              f"fused {a.get('n_fused', '-')} "
+              f"({'closed' if 'n_fused' in a else 'rejected'})")
     t0 = time.perf_counter()
     pending = slam._gba is not None
     slam.shutdown()
@@ -1215,6 +1265,390 @@ def run_disk(scene, poses, centers):
     return n_rgbd + n_mono
 
 
+def _lane_feats(feats, b):
+    return type(feats)(*(v[b] for v in feats))
+
+
+def time_batch_kernel(lanes):
+    """The 64-level launch of the 8 lanes' pyramids against the plain twin
+    lane by lane, then its replay time beside 8 one-pyramid launches and
+    its bound. Returns the JSON fields."""
+    from orb_slam2_e_tpu_torch.ops import kernels
+    got = kernels.fast_nms_blur_batch(lanes, TH_HIGH, TH_LOW)
+    max_err = 0.0
+    for b, levels in enumerate(lanes):
+        want = kernels.fast_nms_blur_pyramid_plain(levels, TH_HIGH, TH_LOW)
+        for lvl, ((score, blur), (ws, wb)) in enumerate(zip(got, want)):
+            err = (blur[b] - wb).abs().max().item()
+            expect(torch.equal(score[b], ws) and err <= BLUR_TOL,
+                   f"batch launch disagrees with plain: lane {b} level {lvl}")
+            max_err = max(max_err, err)
+    flat = [img for levels in lanes for img in levels]
+    shapes = [tuple(img.shape) for img in lanes[0]]
+    offsets, total = kernels.batch_layout(shapes, len(lanes))
+    offsets = tuple(offsets[lvl][b] for b in range(len(lanes))
+                    for lvl in range(len(shapes)))
+    batch_out = torch.empty((2, total), dtype=torch.float32, device="cuda")
+    pyr_offsets, pyr_total = kernels.pyramid_layout(shapes)
+    lane_out = [torch.empty((2, pyr_total), dtype=torch.float32,
+                            device="cuda") for _ in lanes]
+
+    def batch(_):
+        kernels.launch_into(flat, batch_out[0], batch_out[1], TH_HIGH,
+                            TH_LOW, offsets)
+
+    def eight(_):
+        for levels, out in zip(lanes, lane_out):
+            kernels.launch_into(levels, out[0], out[1], TH_HIGH, TH_LOW,
+                                pyr_offsets)
+
+    times = {"eight": [], "batch": []}
+    for who, fn in (("eight", eight), ("batch", batch), ("batch", batch),
+                    ("eight", eight)):
+        times[who].append(replay_ms(fn))
+    raw = [kernels.fast_score_map(img, TH_HIGH, TH_LOW) for img in flat]
+    bound, by, _, counts = bound_ms(flat, raw)
+    ms, eight_ms = min(times["batch"]), min(times["eight"])
+    print(f"[parallel] {len(flat)}-level launch ({len(lanes)} lanes x "
+          f"{len(shapes)} levels): replay {times['batch'][0]:.5f} / "
+          f"{times['batch'][1]:.5f} ms; 8 one-pyramid launches "
+          f"{times['eight'][0]:.5f} / {times['eight'][1]:.5f} ms; bound "
+          f"{bound:.5f} ms by {by} ({json.dumps(counts)}): the launch "
+          f"reaches {bound / ms:.1%} of it; bit-equal to the plain twin "
+          f"lane by lane (blur max|diff| {max_err:.3g})")
+    return {"batch64_ms": ms, "batch64_bound_ms": bound,
+            "batch64_bound_by": by, "eight_pyramid_launches_ms": eight_ms}
+
+
+def run_parallel(orbit, rgbd_state):
+    """The parallel package on the card. (a) `BatchedTracker`, B = 8, on
+    the RGB-D phase's map by bench.py's lane protocol: each step one kernel
+    launch for the 8 pyramids and the tracking under torch.vmap; every lane
+    held to the single-lane `track_frame_fused` on the same features; the
+    batched and the single-lane rate, the launches and synchronizing calls
+    of a step, the 64-level launch's time against its bound. (b) the
+    distributed BA on a one-rank NCCL group (one card cannot host two) on
+    the map's global BA problem, against the single solve; (c) the sharded
+    BoW query against the database's own; (d) the dryrun twin. Returns the
+    phase's launches of the main path and the kernel record's fields."""
+    import tempfile
+    import torch.distributed as dist
+    from orb_slam2_e_tpu_torch.models import kf_database as KFDB
+    from orb_slam2_e_tpu_torch.models import loop_closing as LC
+    from orb_slam2_e_tpu_torch.models import tracking as T
+    from orb_slam2_e_tpu_torch.models.frame import frame_from_features
+    from orb_slam2_e_tpu_torch.ops import ba, kernels, lie
+    from orb_slam2_e_tpu_torch.parallel import dist_ba, dist_db
+    from orb_slam2_e_tpu_torch.parallel.batched import BatchedTracker
+    from orb_slam2_e_tpu_torch.tools import dryrun_multichip as dry
+    from orb_slam2_e_tpu_torch.tools.profile_step import profile_frames
+    scene, poses, _ = orbit
+    slam, _, _ = rgbd_state
+    B, n_steps = PAR_LANES, PAR_STEPS + 1          # one warm-up step
+    n = len(slam.trajectory)                       # frames the map tracked
+    starts = [n - 1 - PAR_STEPS - b for b in range(B)]
+    rendered = {}
+
+    def image(k):
+        if k not in rendered:
+            rendered[k] = grey(scene, *poses[k])
+        return rendered[k]
+
+    batches = [torch.as_tensor(np.stack([image(st + 1 + k) for st in starts]),
+                               device="cuda") for k in range(n_steps)]
+    ref_kf = max(slam.last_kf_slot, 0)
+    refs = torch.full((B,), ref_kf, dtype=torch.int32, device="cuda")
+    cfg = slam.cfg
+
+    # --- (a) the batched tracker: the main path of this phase
+    kernels.fast_nms_blur.launches = 0
+    boot = []
+    for st in starts:
+        pose7 = slam.trajectory[st][1]
+        expect(pose7 is not None, f"parallel: frame {st} was not tracked")
+        boot.append(frame_from_features(slam.cam, slam.extractor(
+            torch.as_tensor(image(st), device="cuda")))._replace(pose7=pose7))
+    bt = BatchedTracker(slam.cam, slam.track_cfg, [slam.map] * B,
+                        n_features=cfg.n_features,
+                        scale_factor=cfg.scale_factor, n_levels=cfg.n_levels,
+                        device="cuda")
+    bt.bootstrap(boot)
+    n_boot = kernels.fast_nms_blur.launches
+    expect(n_boot == B, f"parallel: {n_boot} launches for {B} boot frames")
+    feats_seen = []
+    extract_batch = bt.extractor.extract_batch
+
+    def logged(images):
+        feats = extract_batch(images)
+        feats_seen.append(feats)
+        return feats
+
+    bt.extractor.extract_batch = logged
+    steps = []
+
+    def batched_step(k):
+        ok, n_in = bt.step(batches[k], refs)
+        steps.append((ok, n_in, bt.last_frames.pose7, bt.vels,
+                      bt.state.lm_visible, bt.state.lm_found))
+
+    kernels.fast_nms_blur.launches = 0
+    batched_step(0)                                # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(1, n_steps):
+        batched_step(k)
+    torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t0
+    batched_fps = B * PAR_STEPS / batched_s
+    n_batched = kernels.fast_nms_blur.launches
+    expect(n_batched == n_steps, f"parallel: {n_batched} launches for "
+           f"{n_steps} batched steps of {B} lanes")
+
+    # every lane against the single-lane step on the same features; a
+    # landmark's visible / found increment of one step is a decision, and
+    # a decision "flips" where the lane and the single step disagree
+    t0 = time.perf_counter()
+    worst_pose, flip_pose, flips, flip_steps, decisions = 0.0, 0.0, 0, 0, 0
+    for b in range(B):
+        state, last = slam.map, boot[b]
+        vel, have_vel = lie.pose7_identity(device="cuda"), False
+        counts_b = (slam.map.lm_visible, slam.map.lm_found)
+        for k in range(n_steps):
+            frame = frame_from_features(slam.cam,
+                                        _lane_feats(feats_seen[k], b))
+            counts_s = (state.lm_visible, state.lm_found)
+            state, last, vel, flags = T.track_frame_fused(
+                slam.cam, slam.track_cfg, state, frame, last, vel, have_vel,
+                ref_kf)
+            ok, n_in, pose7, vels, vis, found = steps[k]
+            flags = flags.tolist()
+            have_vel = bool(flags[0])
+            expect(bool(ok[b]) and flags[0] == 1, f"parallel: lane {b} lost "
+                   f"at step {k}: batched {bool(ok[b])}, single {flags}")
+            expect(int(n_in[b]) == flags[1], f"parallel: lane {b} step {k}: "
+                   f"{int(n_in[b])} inliers batched, {flags[1]} single")
+            pose_diff = max(float((pose7[b] - last.pose7).abs().max()),
+                            float((vels[b] - vel).abs().max()))
+            step_s = [new - old for new, old in zip(
+                (state.lm_visible, state.lm_found), counts_s)]
+            step_b = [new - old for new, old in zip((vis[b], found[b]),
+                                                    counts_b)]
+            counts_b = (vis[b], found[b])
+            n_flip = sum(int((x != y).sum()) for x, y in zip(step_s, step_b))
+            decisions += sum(int((x != 0).sum()) for x in step_s)
+            flips += n_flip
+            flip_steps += n_flip > 0
+            worst_pose = max(worst_pose, pose_diff)
+            if n_flip:
+                flip_pose = max(flip_pose, pose_diff)
+    torch.cuda.synchronize()
+    yardstick_s = time.perf_counter() - t0
+    print(f"[parallel] {B} lanes x {n_steps} steps: flags equal to the "
+          f"single-lane step on the same features, every lane tracked; pose "
+          f"and velocity max|diff| {worst_pose:.3g} (gate {PAR_POSE_ATOL}), "
+          f"{flip_pose:.3g} on the steps with a flipped decision; visibility "
+          f"decisions flipped: {flips} of {decisions} on {flip_steps} of "
+          f"{B * n_steps} lane steps (gate {PAR_FLIP_SHARE:.0e} of them)")
+    expect(worst_pose <= PAR_POSE_ATOL, f"parallel: poses differ by "
+           f"{worst_pose}")
+    expect(flips <= PAR_FLIP_SHARE * decisions, f"parallel: {flips} of "
+           f"{decisions} visibility decisions differ from the single lane's")
+    # the single-lane rate: one lane, extraction included, the flags read
+    # after every step as the system reads them
+    state, last = slam.map, boot[0]
+    vel, have_vel = lie.pose7_identity(device="cuda"), False
+
+    def single_step(k):
+        nonlocal state, last, vel, have_vel
+        frame = frame_from_features(slam.cam, slam.extractor(batches[k][0]))
+        state, last, vel, flags = T.track_frame_fused(
+            slam.cam, slam.track_cfg, state, frame, last, vel, have_vel,
+            ref_kf)
+        have_vel = bool(flags[0])
+
+    kernels.fast_nms_blur.launches = 0
+    single_step(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(1, n_steps):
+        single_step(k)
+    torch.cuda.synchronize()
+    single_fps = PAR_STEPS / (time.perf_counter() - t0)
+    n_single = kernels.fast_nms_blur.launches
+    expect(n_single == n_steps, f"parallel: {n_single} launches for "
+           f"{n_steps} single-lane steps")
+    dev = torch.device("cuda")
+    kernels.fast_nms_blur.launches = 0
+    pb = profile_frames(lambda i: batched_step(n_steps - 1), 1, dev, 0)
+    p1 = profile_frames(lambda i: single_step(n_steps - 1), 1, dev, 0)
+    n_prof = kernels.fast_nms_blur.launches
+    expect(n_prof == 2, f"parallel: {n_prof} launches for 2 profiled steps")
+    launches = n_boot + n_batched + n_single + n_prof
+    print(f"[parallel] {card_line()}: batched {batched_fps:.2f} frames/s "
+          f"({B} lanes x {PAR_STEPS} steps in {batched_s:.2f} s, "
+          f"{batched_s / PAR_STEPS * 1e3:.1f} ms a step); single lane "
+          f"{single_fps:.2f} frames/s; the same-feature check took "
+          f"{yardstick_s:.1f} s")
+    print(f"[parallel] one batched step ({B} lanes, under the profiler): "
+          f"{pb['launches']:.0f} kernel launches, {pb['copies']:.0f} copies, "
+          f"{pb['syncs']:.0f} synchronizing calls, device busy "
+          f"{pb['busy_ms']:.1f} ms; one single-lane step: "
+          f"{p1['launches']:.0f} launches, {p1['copies']:.0f} copies, "
+          f"{p1['syncs']:.0f} synchronizing calls, busy {p1['busy_ms']:.1f} "
+          f"ms; {B} single-lane steps would launch {B * p1['launches']:.0f}")
+    print(f"[parallel] fast_nms_blur launches: {n_batched} for {n_steps} "
+          f"batched steps of {B} lanes; {n_boot} boot frames, {n_single} "
+          f"single-lane steps, {n_prof} profiled steps")
+    # the batched extraction against the one-image extraction, every lane
+    # of step 0 (comparison launches, not counted). The batched resize is
+    # one matmul for all lanes, which cuBLAS may round apart from the
+    # one-image matmul: it is held to PAR_RESIZE_ATOL, and everything after
+    # it (the kernel and the vmapped detect / angle / descriptor stages) to
+    # the one-image stages on the batched levels, exactly
+    ex = slam.extractor
+    pyr = bt.extractor._pyramid(batches[0])
+    resize_err, exact, moved = [0.0] * len(pyr), 0, []
+    fields = {f: 0 for f in type(feats_seen[0])._fields}
+    for b in range(B):
+        lane = _lane_feats(feats_seen[0], b)
+        levels = [lvl[b] for lvl in pyr]
+        for lvl, (got, want) in enumerate(zip(levels,
+                                              ex._pyramid(batches[0][b]))):
+            resize_err[lvl] = max(resize_err[lvl],
+                                  float((got - want).abs().max()))
+        maps = kernels.fast_nms_blur_pyramid(levels, ex.ini_th, ex.min_th)
+        per_level = [ex._level_features(lvl, img, smap, blurred)
+                     for lvl, (img, (smap, blurred)) in enumerate(zip(levels,
+                                                                     maps))]
+        exact += all(torch.equal(getattr(lane, f),
+                                 torch.cat([getattr(x, f) for x in per_level]))
+                     for f in fields)
+        one = ex(batches[0][b])
+        for f in fields:
+            fields[f] += torch.equal(getattr(one, f), getattr(lane, f))
+        moved.append(int((one.uv != lane.uv).any(-1).sum()))
+    print(f"[parallel] extract_batch on the card: the batched resize against "
+          f"the one-image one, max|diff| by level "
+          f"{[f'{e:.3g}' for e in resize_err]} (gate {PAR_RESIZE_ATOL}); on "
+          f"the batched levels, every field equal to the one-image stages in "
+          f"{exact} of {B} lanes; against the whole one-image extraction, "
+          f"lanes equal by field {fields}, keypoint slots that moved by lane "
+          f"{moved} of {one.uv.shape[0]}")
+    expect(resize_err[0] == 0 and max(resize_err) <= PAR_RESIZE_ATOL,
+           f"parallel: batched resize differs by {resize_err}")
+    expect(exact == B, "parallel: the batched extraction's stages differ "
+           "from the one-image stages on the same levels")
+    record = time_batch_kernel(
+        [[lvl[b] for lvl in bt.extractor._pyramid(batches[0])]
+         for b in range(B)])
+
+    # --- (b)-(d) the distributed modules on a one-rank NCCL group
+    with tempfile.TemporaryDirectory() as tmp:
+        dry.init_rank(0, 1, os.path.join(tmp, "rdv"), "cuda")
+        try:
+            prob, clipped = LC.gba_problem(slam.cam, slam.map,
+                                           cfg.scale_factor)
+            n_obs = int(prob.obs_valid.sum())
+            group = dist_ba.make_mesh()
+
+            def solve(sharded):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = (dist_ba.distributed_ba(slam.cam, prob, group, 10, 30)
+                       if sharded else
+                       ba.ba_solve_pcg(slam.cam, prob, n_outer=10,
+                                       cg_iters=30))
+                torch.cuda.synchronize()
+                return res, (time.perf_counter() - t0) * 1e3
+
+            def diff(a, b):
+                return (float((a.cam_pose7 - b.cam_pose7).abs().max()),
+                        float((a.points - b.points).abs().max()))
+
+            # the gate: with deterministic scatter-adds (any op without a
+            # deterministic kernel raises), the one-rank sharded solve does
+            # the single solve's arithmetic, so only the sharding code can
+            # make them differ
+            dist.all_reduce(torch.zeros(1, device="cuda"))  # start NCCL
+            # torch refuses cuBLAS in deterministic mode unless this names a
+            # fixed workspace; on one stream cuBLAS repeats bit for bit
+            os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+            torch.use_deterministic_algorithms(True)
+            try:
+                single, det_single_ms = solve(False)
+                shard, det_shard_ms = solve(True)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            dp, dx = diff(shard, single)
+            # the card's default atomic adds: three solves of each kind,
+            # interleaved, every pair compared within and across the kinds
+            runs = {False: [], True: []}
+            for _ in range(3):
+                for sharded in (False, True):
+                    runs[sharded].append(solve(sharded))
+            single_ms = min(ms for _, ms in runs[False])
+            shard_ms = min(ms for _, ms in runs[True])
+
+            def spread(pairs):
+                return sorted(diff(a, b)[1] for a, b in pairs)
+
+            s_runs, d_runs = ([r for r, _ in runs[k]] for k in (False, True))
+            within_s = spread([(s_runs[i], s_runs[j]) for i in range(3)
+                               for j in range(i)])
+            within_d = spread([(d_runs[i], d_runs[j]) for i in range(3)
+                               for j in range(i)])
+            across = spread([(a, b) for a in s_runs for b in d_runs])
+            # where the largest of all these differences lies: its point's
+            # live observations against the map's median
+            d_pts = torch.stack([r.points for r in s_runs + d_runs])
+            worst = int((d_pts.amax(0) - d_pts.amin(0)).amax(1).argmax())
+            n_seen = torch.bincount(prob.obs_point[prob.obs_valid].long(),
+                                    minlength=prob.points.shape[0])
+            live = n_seen[prob.point_valid]
+            print(f"[parallel] distributed BA, 1 NCCL rank, the map's global "
+                  f"BA ({int(slam.map.kf_valid.sum())} keyframes, "
+                  f"{int(prob.point_valid.sum())} landmarks, {n_obs} of "
+                  f"{prob.obs_valid.shape[0]} observation slots, clipped "
+                  f"{int(clipped)}; 10 LM x 30 CG). Deterministic adds: "
+                  f"sharded {det_shard_ms:.1f} ms, single {det_single_ms:.1f} "
+                  f"ms, max|diff| poses {dp:.3g}, points {dx:.3g}. The card's "
+                  f"atomic adds, best of 3 interleaved: sharded "
+                  f"{shard_ms:.1f} ms, single {single_ms:.1f} ms; points "
+                  f"max|diff| single vs single "
+                  f"{[f'{v:.3g}' for v in within_s]}, sharded vs sharded "
+                  f"{[f'{v:.3g}' for v in within_d]}, sharded vs single "
+                  f"{[f'{v:.3g}' for v in across]}; the most spread point "
+                  f"has {int(n_seen[worst])} observations (median "
+                  f"{float(live.float().median()):.0f}, min {int(live.min())})"
+                  f"; inliers {int(shard.obs_inlier.sum())} / "
+                  f"{int(single.obs_inlier.sum())}")
+            expect(dp <= DIST_POSE_ATOL and dx <= DIST_POINT_ATOL,
+                   f"distributed BA differs: {dp}, {dx}")
+            expect(shard.obs_inlier.shape == single.obs_inlier.shape,
+                   "distributed BA: obs_inlier not gathered")
+
+            q = slam._bow_vec(slam.map.kf_desc[ref_kf],
+                              slam.map.kf_kp_valid[ref_kf])
+            want_i, want_s = KFDB.detect_relocalization_candidates(
+                slam.bow_db, q, 5)
+            vecs, filled = dist_db.pad_rows(slam.bow_db.vecs,
+                                            slam.bow_db.filled, 1)
+            got_i, got_s = dist_db.sharded_query(group, vecs, filled, q, 5)
+            print(f"[parallel] sharded query over ({tuple(vecs.shape)}) "
+                  f"tf-idf rows: slots {got_i.tolist()}, database's "
+                  f"{want_i.tolist()}")
+            expect(torch.equal(got_i, want_i) and float(
+                (got_s - want_s).abs().max()) <= 1e-6,
+                   "sharded query differs from the database's")
+            dry.dryrun_multichip(1, "cuda")
+            print("[parallel] dryrun_multichip(1): finite, equal to the "
+                  "single-process functions")
+        finally:
+            dist.destroy_process_group()
+    expect("jax" not in sys.modules, "jax was imported")
+    return launches, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1242,13 +1676,20 @@ def main() -> int:
         + phase(run_reloc, *orbit) + phase(run_loop)
         + phase(run_loc, orbit, rgbd_state) + phase(run_deform)
         + phase(run_disk, *orbit))
-    # one launch per extraction: 30 + 20 + 2 x 12 + 25 on the orbit, 96
-    # around the ring, 10 + 12 + 30 in localization-only mode, 20 + 20 on
+    n_par, par_record = phase(run_parallel, orbit, rgbd_state)
+    record["launches"] += n_par
+    record.update(par_record)
+    # one launch per extraction: 30 + 20 + 2 x 10 + 25 on the orbit, 96
+    # around the ring, 6 + 12 + 30 in localization-only mode, 20 + 20 on
     # the deforming surface (none in the deformable phase's part A), 12 + 20
-    # through the examples from disk
-    expect(record["launches"] == 99 + LOOP_FRAMES + LOC_ORBIT_FRAMES
+    # through the examples from disk; in the parallel phase one per step
+    # for all 8 lanes (13), 8 bootstrap frames, 13 single-lane frames and
+    # one profiled step of each kind
+    expect(record["launches"] == 75 + 2 * STEREO_FRAMES + LOOP_FRAMES
+           + LOC_ORBIT_FRAMES
            + LOC_MAPPED + LOC_FRAMES + DEFORM_MAPPED + DEFORM_FRAMES
-           + DISK_FRAMES + DISK_MONO_FRAMES,
+           + DISK_FRAMES + DISK_MONO_FRAMES
+           + PAR_LANES + 2 * (PAR_STEPS + 1) + 2,
            f"launch total {record['launches']}")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -29,11 +29,14 @@
 //
 // What the design does about it:
 //   - one launch per extraction: a 1-D grid over the tiles of all levels, a
-//     block finding its level from a table of first tile indices passed as
-//     a __grid_constant__ argument. The small levels, which cannot fill 132
-//     SMs on their own, share the card with the large ones. Each level's
-//     input is its own tensor (no packing copy); the two outputs are packed
-//     buffers that the wrapper allocates once and views per level;
+//     block finding its level by binary search in a table of first tile
+//     indices passed as a __grid_constant__ argument. The table holds 64
+//     levels (32 B each, 2 KB of the 4 KB parameter space), so the pyramids
+//     of 8 camera streams go in one launch. The small levels, which cannot
+//     fill 132 SMs on their own, share the card with the large ones. Each
+//     level's input is its own tensor (no packing copy); the two outputs
+//     are packed buffers that the wrapper allocates once and views per
+//     level;
 //   - an exact early reject: a 9-arc holds two neighbouring compass
 //     positions of the ring, which bounds the score from 4 of the 16
 //     differences; where the bound is not above the lower threshold the
@@ -91,7 +94,7 @@ constexpr int APRON_COLS = TILE_W + 2;
 constexpr int APRON_PITCH = APRON_COLS | 1;
 constexpr int VB_COLS = TILE_W + 6;              // tile columns + 3 each side
 constexpr int VB_PITCH = VB_COLS | 1;
-constexpr int MAX_LEVELS = 16;
+constexpr int MAX_LEVELS = 64;            // 8 lanes x 8 levels
 
 static_assert(TILE_W % 32 == 0 && (SEG & (SEG - 1)) == 0, "tile width");
 static_assert((TILE_H & (TILE_H - 1)) == 0, "tile height: a power of two");
@@ -112,6 +115,8 @@ struct Params {
   float th_min;         // min(th_high, th_low): no score at or below it
   float g7[7];
 };
+static_assert(sizeof(Level) == 32, "a level table row is 32 bytes");
+static_assert(sizeof(Params) <= 4096, "the classic 4 KB kernel-parameter space");
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -370,10 +375,16 @@ fast_nms_blur_kernel(const __grid_constant__ Params prm,
   __shared__ int s_n_todo;
 
   if (threadIdx.x == 0) s_n_todo = 0;
-  // the block's level: the last one whose first tile is not beyond it
-  int lvl = 0;
-  for (int l = 1; l < prm.n_levels; ++l)
-    if (static_cast<int>(blockIdx.x) >= prm.level[l].first_tile) lvl = l;
+  // the block's level: the last one whose first tile is not beyond it, by
+  // binary search over the increasing first tiles (6 steps for 64 levels)
+  int lvl = 0, hi = prm.n_levels - 1;
+  while (lvl < hi) {
+    const int mid = (lvl + hi + 1) >> 1;
+    if (static_cast<int>(blockIdx.x) >= prm.level[mid].first_tile)
+      lvl = mid;
+    else
+      hi = mid - 1;
+  }
   const Level& L = prm.level[lvl];
   const int tile = blockIdx.x - L.first_tile;
   const int tile_y = tile / L.tiles_x;          // once per block

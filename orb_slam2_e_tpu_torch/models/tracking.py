@@ -216,8 +216,9 @@ def track_local_map(cam: Camera, cfg: TrackConfig, state: MapState,
     votes = (kf_hit.sum(1) * state.kf_valid).to(_I32)        # (K,)
     k_cap = min(cfg.local_kf_cap, int(votes.shape[0]))
     top_votes, top_kfs = top_k(votes, k_cap)
-    local_kf_mask = torch.zeros((state.K,), dtype=torch.bool, device=dev)
-    local_kf_mask[top_kfs] = top_votes > 0                  # distinct ids
+    local_kf_mask = torch.zeros((state.K,), dtype=torch.bool,
+                                device=dev).scatter(0, top_kfs,
+                                                    top_votes > 0)
     in_local = (local_kf_mask[:, None] & state.kf_kp_valid
                 & (state.kf_kp_point >= 0))
     lm_local = scatter.mark(state.P, torch.where(
@@ -251,11 +252,15 @@ def update_visibility_counters(state: MapState, visible, found):
 
 def track_frame_fused(cam: Camera, cfg: TrackConfig, state: MapState,
                       frame: Frame, last_frame: Frame, velocity7,
-                      have_velocity: bool, ref_kf):
+                      have_velocity, ref_kf):
     """Motion-model attempt, reference-keyframe fallback, local-map
     tracking, visibility counters, keyframe-policy statistic and the
     next-frame velocity. Returns (state, frame, velocity7', flags) with
-    flags = [ok, n_inliers, ref_matches, clipped] int32 (one host read)."""
+    flags = [ok, n_inliers, ref_matches, clipped] int32 (one host read).
+
+    `have_velocity` is a Python bool or a 0-d bool tensor; every other
+    branch is a `torch.where`, so the step runs under `torch.vmap` over
+    lanes (`parallel.batched.BatchedTracker`)."""
     pred7, Rl, tl = _predict_pose7(last_frame, velocity7, have_velocity)
 
     f_mm, _, n_in_mm = track_motion_model(cam, cfg, state, frame,
@@ -282,14 +287,19 @@ def track_frame_fused(cam: Camera, cfg: TrackConfig, state: MapState,
     return state, frame_out, vel_new, flags
 
 
-def _predict_pose7(last_frame: Frame, velocity7, have_velocity: bool):
+def _predict_pose7(last_frame: Frame, velocity7, have_velocity):
     """Motion-model prediction velocity * last pose; the last pose itself
-    without a velocity. Returns (pred7, Rl, tl)."""
+    without a velocity. `have_velocity` is a Python bool (the system's
+    step), or a bool tensor (a lane of `BatchedTracker`), which selects with
+    `torch.where`. Returns (pred7, Rl, tl)."""
     Rl, tl = lie.pose7_unpack(last_frame.pose7)
-    if not have_velocity:
+    if have_velocity is False:
         return last_frame.pose7, Rl, tl
     Rv, tv = lie.pose7_unpack(velocity7)
-    return lie.pose7_pack(*lie.se3_compose(Rv, tv, Rl, tl)), Rl, tl
+    pred7 = lie.pose7_pack(*lie.se3_compose(Rv, tv, Rl, tl))
+    if have_velocity is True:
+        return pred7, Rl, tl
+    return torch.where(have_velocity, pred7, last_frame.pose7), Rl, tl
 
 
 # ---------------------------------------------------------------------------

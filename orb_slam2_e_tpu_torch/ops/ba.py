@@ -494,8 +494,9 @@ def ba_solve_pcg(cam: Camera, prob: BAProblem, n_outer: int = 10,
                  cg_iters: int = 30, robust: bool = True,
                  psum=None) -> BAResult:
     """LM with the matrix-free Schur product and a block-Jacobi PCG camera
-    solve. `psum` is reserved for observation arrays sharded over devices
-    (not ported: pass None)."""
+    solve. `psum` sums a partial result over the ranks that share the
+    observations (`parallel.dist_ba.distributed_ba` passes an all-reduce);
+    None on one device."""
     carry = ba_pcg_carry_init(prob)
     for _ in range(n_outer):
         carry, _ = _pcg_lm_step(cam, prob, carry, cg_iters, robust, psum)

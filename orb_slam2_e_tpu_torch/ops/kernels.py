@@ -1,15 +1,16 @@
 """Hand-written CUDA kernel of the ORB front end, its plain torch twin, and
 its build.
 
-`fast_nms_blur_pyramid` replaces the reference's Pallas kernel
+`fast_nms_blur_batch` replaces the reference's Pallas kernel
 `orb_slam2_e_tpu/ops/pallas_kernels.py::fast_nms_blur` with
 `csrc/fast_nms_blur.cu` (CUDA C++ for sm_90a, plain C entry point, loaded
-with ctypes). It computes, for every level of an image pyramid in one kernel
-launch, the FAST-9/16 V-score with the two-threshold bonus, 3x3 non-max
-suppression and the 7x7 sigma=2 Gaussian blur: the function of the
-reference's XLA path (`orb.fast_score_map` + the NMS of `orb.detect_level` +
-`orb.gaussian_blur7`) over the whole image, border included.
-`fast_nms_blur` is its one-level case.
+with ctypes). It computes, for every level of the image pyramids of one or
+more lanes (camera streams) in one kernel launch, the FAST-9/16 V-score with
+the two-threshold bonus, 3x3 non-max suppression and the 7x7 sigma=2
+Gaussian blur: the function of the reference's XLA path
+(`orb.fast_score_map` + the NMS of `orb.detect_level` + `orb.gaussian_blur7`)
+over the whole image, border included. `fast_nms_blur_pyramid` is its
+one-lane case and `fast_nms_blur` its one-level case.
 
 Tensors on the CPU go to the plain versions; CUDA tensors go to the kernel
 or the call raises. Nothing falls back.
@@ -38,7 +39,7 @@ _SRC = os.path.join(_PKG_DIR, "csrc", "fast_nms_blur.cu")
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-MAX_LEVELS = 16          # rows of the kernel's level table (csrc: MAX_LEVELS)
+MAX_LEVELS = 64          # rows of the kernel's level table (csrc: MAX_LEVELS)
 # each level's slice of the packed outputs starts on a 128-byte line
 _OUT_ALIGN = 32          # float32 elements
 
@@ -213,29 +214,37 @@ def build() -> ctypes.CDLL:
     return lib
 
 
-def pyramid_layout(shapes):
-    """Where each (H, W) level lies in a packed output buffer: ([element
-    offset per level], total elements). A level is a contiguous (H, W) block;
-    its offset is a multiple of 32 elements."""
+def batch_layout(shapes, n_lanes: int):
+    """Where level l of lane b lies in the packed output buffers of B lanes
+    with the same level shapes: ([[element offset of lane b] per level],
+    total elements). The lanes of one level form a contiguous (n_lanes, H, W)
+    block, whose offset is a multiple of 32 elements, so the block is the
+    level's batched view."""
     offsets, total = [], 0
     for h, w in shapes:
-        offsets.append(total)
-        total += -(-h * w // _OUT_ALIGN) * _OUT_ALIGN
+        offsets.append([total + b * h * w for b in range(n_lanes)])
+        total += -(-n_lanes * h * w // _OUT_ALIGN) * _OUT_ALIGN
     return offsets, total
 
 
+def pyramid_layout(shapes):
+    """`batch_layout` of one lane: ([element offset per level], total)."""
+    offsets, total = batch_layout(shapes, 1)
+    return [o for o, in offsets], total
+
+
 def pyramid_views(packed: torch.Tensor, shapes):
-    """The (H, W) view of each level in a packed buffer."""
+    """The (H, W) view of each level in a packed one-lane buffer."""
     offsets, _ = pyramid_layout(shapes)
     return [packed[o:o + h * w].view(h, w)
             for (h, w), o in zip(shapes, offsets)]
 
 
 @functools.lru_cache(maxsize=64)
-def _level_table(shapes):
-    """The host arrays the launch passes for a tuple of (H, W) shapes."""
+def _level_table(shapes, offsets):
+    """The host arrays the launch passes for a tuple of (H, W) shapes and
+    their element offsets."""
     n = len(shapes)
-    offsets, _ = pyramid_layout(shapes)
     return ((ctypes.c_int * n)(*[h for h, _ in shapes]),
             (ctypes.c_int * n)(*[w for _, w in shapes]),
             (ctypes.c_longlong * n)(*offsets))
@@ -260,15 +269,15 @@ def _check_levels(levels):
 
 
 def launch_into(levels, score: torch.Tensor, blur: torch.Tensor,
-                th_high: float, th_low: float) -> None:
+                th_high: float, th_low: float, offsets) -> None:
     """One kernel launch on the current stream: every level of `levels`
-    (checked by the caller) into the packed float32 buffers `score` and
-    `blur`, laid out by `pyramid_layout`. Allocates nothing on the device;
-    adds one to `fast_nms_blur.launches`."""
+    (1..64, checked by the caller) into the packed float32 buffers `score`
+    and `blur`, level k at the element offset `offsets[k]` (a tuple).
+    Allocates nothing on the device; adds one to `fast_nms_blur.launches`."""
     lib = build()
     dev = levels[0].device
     heights, widths, offsets = _level_table(
-        tuple(tuple(img.shape) for img in levels))
+        tuple(tuple(img.shape) for img in levels), tuple(offsets))
     imgs = (ctypes.c_void_p * len(levels))(*[i.data_ptr() for i in levels])
     with torch.cuda.device(dev):
         err = lib.fast_nms_blur_pyramid_launch(
@@ -280,30 +289,60 @@ def launch_into(levels, score: torch.Tensor, blur: torch.Tensor,
     fast_nms_blur.launches += 1
 
 
-def fast_nms_blur_pyramid(levels, th_high: float, th_low: float):
-    """Fused FAST score -> 3x3 NMS, and 7x7 blur, of every pyramid level.
+def fast_nms_blur_batch(levels_per_lane, th_high: float, th_low: float):
+    """Fused FAST score -> 3x3 NMS, and 7x7 blur, of every level of the
+    pyramids of B lanes (camera streams).
 
-    levels: 1..16 (H, W) float32 contiguous tensors on one device, H, W >= 4
-    (shapes may differ). Returns [(score, blur)] per level, each (H, W)
-    float32. CPU tensors take the plain torch version. CUDA tensors take the
-    kernel in ONE launch: the outputs of all levels are views of two packed
-    buffers allocated by this call."""
-    levels = list(levels)
-    _check_levels(levels)
-    if levels[0].device.type == "cpu":
-        return fast_nms_blur_pyramid_plain(levels, th_high, th_low)
-    shapes = [tuple(img.shape) for img in levels]
-    packed = torch.empty((2, pyramid_layout(shapes)[1]), dtype=torch.float32,
-                         device=levels[0].device)
-    launch_into(levels, packed[0], packed[1], th_high, th_low)
-    return list(zip(pyramid_views(packed[0], shapes),
-                    pyramid_views(packed[1], shapes)))
+    levels_per_lane: B lists of 1..64 (H, W) float32 contiguous tensors,
+    H, W >= 4, all on one device, every lane with the same level shapes
+    (shapes may differ between levels). Returns [(score (B, H, W), blur
+    (B, H, W))] per level. CPU tensors take the plain torch version lane by
+    lane. CUDA tensors take the kernel: ONE launch while B x levels <= 64,
+    else one launch per group of 64 // levels lanes. The outputs of a level
+    are views of two packed buffers allocated by this call."""
+    lanes = [list(levels) for levels in levels_per_lane]
+    shapes = [tuple(img.shape) for img in lanes[0]]
+    if any([tuple(img.shape) for img in levels] != shapes
+           for levels in lanes):
+        raise ValueError("lanes differ in their level shapes")
+    for levels in lanes:
+        _check_levels(levels)
+    dev = lanes[0][0].device
+    if any(img.device != dev for levels in lanes for img in levels):
+        raise ValueError("lanes lie on different devices")
+    if dev.type == "cpu":
+        per_lane = [fast_nms_blur_pyramid_plain(levels, th_high, th_low)
+                    for levels in lanes]
+        return [tuple(torch.stack([lane[lvl][i] for lane in per_lane])
+                      for i in (0, 1)) for lvl in range(len(shapes))]
+    offsets, total = batch_layout(shapes, len(lanes))
+    packed = torch.empty((2, total), dtype=torch.float32, device=dev)
+    per_launch = MAX_LEVELS // len(shapes)
+    for b0 in range(0, len(lanes), per_launch):
+        group = range(b0, min(b0 + per_launch, len(lanes)))
+        launch_into([img for b in group for img in lanes[b]], packed[0],
+                    packed[1], th_high, th_low,
+                    [offsets[lvl][b] for b in group
+                     for lvl in range(len(shapes))])
+    out = []
+    for (h, w), lane_offsets in zip(shapes, offsets):
+        o, n = lane_offsets[0], len(lanes) * h * w
+        out.append((packed[0, o:o + n].view(-1, h, w),
+                    packed[1, o:o + n].view(-1, h, w)))
+    return out
+
+
+def fast_nms_blur_pyramid(levels, th_high: float, th_low: float):
+    """The one-lane case of `fast_nms_blur_batch`: [(score, blur)] per level
+    of one pyramid of 1..64 (H, W) levels, in ONE launch on the card."""
+    return [(score[0], blur[0]) for score, blur in
+            fast_nms_blur_batch([levels], th_high, th_low)]
 
 
 def fast_nms_blur(img: torch.Tensor, th_high: float, th_low: float):
     """The one-level case of `fast_nms_blur_pyramid`: (score, blur) of one
     (H, W) float32 image. `fast_nms_blur.launches` counts every launch of
-    the kernel, whichever of the two entries made it."""
+    the kernel, whichever entry made it."""
     return fast_nms_blur_pyramid([img], th_high, th_low)[0]
 
 

@@ -95,8 +95,8 @@ def rotation_consistency_mask(angle_a: torch.Tensor, angle_b: torch.Tensor,
         torch.int32), min=1)
     keep_bin = top3_counts >= floor
     allowed = torch.zeros((HISTO_LENGTH,), dtype=torch.bool,
-                          device=angle_a.device)
-    allowed[top3_bins] = keep_bin                   # distinct bins
+                          device=angle_a.device).scatter(0, top3_bins,
+                                                         keep_bin)
     enough = pair_valid.sum() >= min_pairs
     return pair_valid & (allowed[bins] | ~enough)
 

@@ -8,6 +8,9 @@ the steered 256-bit descriptor with the same seeded pattern.
 The per-pixel stage of all levels (FAST score + NMS + blur) is one call of
 `kernels.fast_nms_blur_pyramid` per extraction: one launch of the
 hand-written CUDA kernel on the card, its plain torch twin on the CPU.
+`OrbExtractor.extract_batch` extracts B images of one size with one launch
+of the kernel over all B pyramids (while B x levels <= 64), and the
+per-level stages under `torch.vmap` over the lanes.
 
 Where torch and JAX differ and the port chooses:
 - pyramid resize: `jax.image.resize(..., 'bilinear')` is an antialiased
@@ -100,8 +103,9 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
 
 
 def resize_bilinear(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Antialiased bilinear resize of a (H, W) float32 image to (h, w)."""
-    H, W = img.shape
+    """Antialiased bilinear resize of a (..., H, W) float32 image to
+    (..., h, w)."""
+    H, W = img.shape[-2:]
     wh = torch.tensor(resize_weights(H, h), device=img.device)
     ww = torch.tensor(resize_weights(W, w), device=img.device)
     return wh.T @ img @ ww
@@ -220,14 +224,26 @@ def orientation_moment_maps(img: torch.Tensor):
     return m10, m01
 
 
+_ATAN2_ROW = 64
+
+
 def orientations_from_maps(m10, m01, uv):
-    """Angle per keypoint from the dense moment maps (2 gathers each)."""
+    """Angle per keypoint from the dense moment maps (2 gathers each).
+
+    The atan2 runs on rows padded to a multiple of 64: torch's CPU loop
+    takes whole vectors with its vectorized atan2 and the rest with the
+    scalar one, which round differently, so without the padding a lane's
+    angles would depend on how many lanes share the call."""
     H, W = m10.shape
     pix = uv.to(torch.int64)
     x = torch.clamp(pix[:, 0], 0, W - 1)
     y = torch.clamp(pix[:, 1], 0, H - 1)
     flat = y * W + x
-    return torch.atan2(m01.reshape(-1)[flat], m10.reshape(-1)[flat])
+    n = flat.shape[0]
+    pad = (0, -n % _ATAN2_ROW)
+    F = torch.nn.functional
+    return torch.atan2(F.pad(m01.reshape(-1)[flat], pad),
+                       F.pad(m10.reshape(-1)[flat], pad))[:n]
 
 
 def compute_descriptors(img_blur: torch.Tensor, uv: torch.Tensor,
@@ -270,28 +286,53 @@ class OrbExtractor:
         """image: (H, W) uint8 or float32 grayscale tensor."""
         return self._extract(image)
 
-    def _extract(self, image: torch.Tensor) -> OrbFeatures:
-        img0 = image.to(torch.float32).contiguous()
-        H, W = img0.shape
-        # every level is resized from level 0, so all exist before the one
-        # kernel launch that scores and blurs them
-        levels = [img0] + [
+    def _pyramid(self, images: torch.Tensor) -> list:
+        """The levels of (..., H, W) images, each resized from level 0, so
+        all exist before the one kernel launch that scores and blurs them."""
+        img0 = images.to(torch.float32).contiguous()
+        H, W = img0.shape[-2:]
+        return [img0] + [
             resize_bilinear(img0, int(round(H / s)),
                             int(round(W / s))).contiguous()
             for s in self.scales[1:]]
+
+    def _level_features(self, lvl: int, img, smap, blurred) -> OrbFeatures:
+        """Corners, angles and descriptors of one (H, W) level."""
+        uv, score, valid = detect_level(smap, self.quotas[lvl], self.cell)
+        m10, m01 = orientation_moment_maps(img)
+        ang = orientations_from_maps(m10, m01, uv)
+        desc = compute_descriptors(blurred, uv, ang)
+        scale = torch.tensor(self.scales[lvl], dtype=torch.float32,
+                             device=img.device)
+        return OrbFeatures(
+            uv=uv * scale, response=score, angle=ang,
+            octave=torch.full((uv.shape[0],), lvl, dtype=torch.int32,
+                              device=img.device),
+            desc=desc, valid=valid)
+
+    def _extract(self, image: torch.Tensor) -> OrbFeatures:
+        levels = self._pyramid(image)
         maps = kernels.fast_nms_blur_pyramid(levels, self.ini_th, self.min_th)
-        feats = []
-        for lvl, (img, (smap, blurred)) in enumerate(zip(levels, maps)):
-            uv, score, valid = detect_level(smap, self.quotas[lvl], self.cell)
-            m10, m01 = orientation_moment_maps(img)
-            ang = orientations_from_maps(m10, m01, uv)
-            desc = compute_descriptors(blurred, uv, ang)
-            scale = torch.tensor(self.scales[lvl], dtype=torch.float32,
-                                 device=img.device)
-            feats.append(OrbFeatures(
-                uv=uv * scale, response=score, angle=ang,
-                octave=torch.full((uv.shape[0],), lvl, dtype=torch.int32,
-                                  device=img.device),
-                desc=desc, valid=valid))
+        feats = [self._level_features(lvl, img, smap, blurred)
+                 for lvl, (img, (smap, blurred)) in enumerate(zip(levels,
+                                                                 maps))]
         return OrbFeatures(*[torch.cat([getattr(f, k) for f in feats])
+                             for k in OrbFeatures._fields])
+
+    def extract_batch(self, images: torch.Tensor) -> OrbFeatures:
+        """images: (B, H, W) uint8 or float32, B camera streams of one size.
+        One kernel launch scores and blurs all B pyramids (one per group of
+        64 // n_levels lanes beyond B x n_levels = 64); the per-level stages
+        run under `torch.vmap` over the lanes.
+        Returns OrbFeatures with a leading B; lane b is `_extract(images[b])`
+        (the resize is one pair of matmuls for all lanes)."""
+        levels = self._pyramid(images)
+        maps = kernels.fast_nms_blur_batch(
+            [[img[b] for img in levels] for b in range(images.shape[0])],
+            self.ini_th, self.min_th)
+        feats = [torch.vmap(functools.partial(self._level_features, lvl))(
+                     img, smap, blurred)
+                 for lvl, (img, (smap, blurred)) in enumerate(zip(levels,
+                                                                 maps))]
+        return OrbFeatures(*[torch.cat([getattr(f, k) for f in feats], dim=1)
                              for k in OrbFeatures._fields])

@@ -19,13 +19,13 @@ def masked_set(arr: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor,
 
     idx: (N,) int; ok: (N,) bool; val: (N, ...) or broadcastable. Live rows
     must not repeat an index (the reference leaves the winner of duplicate
-    live writes unspecified too)."""
+    live writes unspecified too). Out of place, so it also runs under
+    `torch.vmap` with `arr` shared by the lanes."""
     cap = arr.shape[0]
     val = torch.as_tensor(val, dtype=arr.dtype, device=arr.device)
     val = val.expand((idx.shape[0],) + tuple(arr.shape[1:]))
     out = torch.cat([arr, arr[:1]])               # row `cap` is the spare
-    out[torch.where(ok, idx.long(), cap)] = val
-    return out[:cap]
+    return out.index_put((torch.where(ok, idx.long(), cap),), val)[:cap]
 
 
 def scatter_max(size: int, idx: torch.Tensor, val: torch.Tensor,

@@ -96,9 +96,13 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def profile_frames(step, n_frames: int, device: torch.device) -> dict:
+def profile_frames(step, n_frames: int, device: torch.device,
+                   host_top: int = 10) -> dict:
     """Run `step(i)` for i < n_frames under torch.profiler. Returns the
-    per-frame counts, the busy share and the top host functions."""
+    per-frame counts and the busy share, read from the profiler's raw
+    events, and the `host_top` host functions with most self time (0: none;
+    they need the profiler's full event tree, whose building takes about
+    40 s for one frame of 40,000 launches)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -113,20 +117,25 @@ def profile_frames(step, n_frames: int, device: torch.device) -> dict:
     wall_ms = (time.perf_counter() - t0) * 1e3
     kernels_n = copies_n = syncs_n = 0
     dev_intervals = []
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CPU:
-            if ev.name in SYNC_CALLS:
+    # the events the profiler's own tree is built from, with its filter
+    for ev in prof.profiler.kineto_results.events():
+        if getattr(ev, "is_hidden_event", lambda: False)():
+            continue
+        if ev.device_type() == torch.autograd.DeviceType.CPU:
+            if ev.name() in SYNC_CALLS:
                 syncs_n += 1
             continue
-        dev_intervals.append((ev.time_range.start, ev.time_range.end))
-        if ev.name.startswith(("Memcpy", "Memset")):
+        dev_intervals.append((ev.start_ns() / 1e3, ev.end_ns() / 1e3))
+        if ev.name().startswith(("Memcpy", "Memset")):
             copies_n += 1
         else:
             kernels_n += 1
-    host = [(k.self_cpu_time_total / 1e3, k.count, k.key)
-            for k in prof.key_averages()
-            if k.device_type == torch.autograd.DeviceType.CPU]
-    host.sort(reverse=True)
+    host = []
+    if host_top:
+        host = sorted(((k.self_cpu_time_total / 1e3, k.count, k.key)
+                       for k in prof.key_averages()
+                       if k.device_type == torch.autograd.DeviceType.CPU),
+                      reverse=True)[:host_top]
     return {
         "wall_ms": wall_ms / n_frames,
         "launches": kernels_n / n_frames,
@@ -135,7 +144,7 @@ def profile_frames(step, n_frames: int, device: torch.device) -> dict:
         "busy_ms": _union_us(dev_intervals) / 1e3 / n_frames,
         "device_events": len(dev_intervals),
         "host": [(ms / n_frames, cnt / n_frames, name)
-                 for ms, cnt, name in host[:10]],
+                 for ms, cnt, name in host],
     }
 
 

@@ -7,8 +7,11 @@ runs `chip_smoke.run_loop(seed)` for every seed given (from the repository
 root, where `chip_smoke.py` lies). The scene and the trajectory are the
 same each time: what varies is the Sim3 RANSAC draw and the order of the
 card's atomic adds. Each run prints the phase's own lines (frame of the
-closure, rejections, ATE, stage ms); a run whose gates fail is reported and
-the next one still runs. Exits 1 if any failed.
+closure, rejections, ATE, stage ms, and a line per Sim3 attempt with its
+`compute_sim3` inliers `n_in`, `verify_sim3`'s inliers `n_in2` and
+projected matches `n_total` where it got that far, and the landmarks
+`search_and_fuse` fused where the loop closed); a run whose gates fail is
+reported and the next one still runs. Exits 1 if any failed.
 """
 
 from __future__ import annotations

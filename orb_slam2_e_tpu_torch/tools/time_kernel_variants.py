@@ -61,11 +61,11 @@ def main(sources) -> int:
                     for g, w in zip(got, want)))
             row = []
             for imgs in timed.values():
-                _, total = kernels.pyramid_layout([tuple(i.shape)
-                                                   for i in imgs])
+                offsets, total = kernels.pyramid_layout([tuple(i.shape)
+                                                         for i in imgs])
                 out = torch.empty((2, total), device="cuda")
                 row.append(cs.replay_ms(lambda i: kernels.launch_into(
-                    imgs, out[0], out[1], *th)))
+                    imgs, out[0], out[1], *th, offsets)))
             times[src].append(row)
     for src, rows in times.items():
         print(src, " | ".join(

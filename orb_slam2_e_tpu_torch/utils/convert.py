@@ -10,7 +10,10 @@ argument) names, e.g.
     {k: np.asarray(v) for k, v in jax_state._asdict().items()}
 
 Dtypes and shapes are kept field by field (uint8 descriptors, int8
-`lm_rigid`, 0-d int32 `next_seq`), so a round trip is bit for bit.
+`lm_rigid`, 0-d int32 `next_seq`), so a round trip is bit for bit. Arrays
+with a leading lane axis (the state of the reference's `BatchedTracker`)
+cross the same way, into a NamedTuple of (B, ...) tensors; `stack_lanes`
+and `unstack_lanes` go between B NamedTuples and one such stack.
 """
 
 from __future__ import annotations
@@ -103,6 +106,17 @@ def fem_mesh_to_numpy(mesh: FemMesh) -> dict:
     """A FemMesh -> {field: numpy array}, `el_type` and `h` as they are."""
     return {k: (v if k in _MESH_STATIC else v.detach().cpu().numpy())
             for k, v in mesh._asdict().items()}
+
+
+def stack_lanes(nts):
+    """B NamedTuples of one type -> one of (B, ...) tensors, field by field
+    (the reference's `jax.tree.map(lambda *xs: jnp.stack(xs), *nts)`)."""
+    return type(nts[0])(*(torch.stack(xs) for xs in zip(*nts)))
+
+
+def unstack_lanes(nt) -> list:
+    """A NamedTuple of (B, ...) tensors -> B NamedTuples of its lanes."""
+    return [type(nt)(*xs) for xs in zip(*(v.unbind(0) for v in nt))]
 
 
 def to_numpy(state) -> dict:

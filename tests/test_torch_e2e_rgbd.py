@@ -193,13 +193,17 @@ def test_convert_rejects_missing_fields():
 
 
 def test_import_and_one_frame_leave_jax_out(tmp_path):
-    """The port imported, and one RGB-D, one monocular and one stereo
-    frame run, in a fresh process: neither jax nor the JAX package is
-    loaded."""
+    """The port imported, its parallel package included, and one RGB-D,
+    one monocular and one stereo frame run, in a fresh process: neither jax
+    nor the JAX package is loaded."""
     code = (
         "import sys\n"
         "import numpy as np\n"
         "import orb_slam2_e_tpu_torch.models.system as S\n"
+        "import orb_slam2_e_tpu_torch.parallel.batched\n"
+        "import orb_slam2_e_tpu_torch.parallel.dist_ba\n"
+        "import orb_slam2_e_tpu_torch.parallel.dist_db\n"
+        "import orb_slam2_e_tpu_torch.tools.dryrun_multichip\n"
         "from orb_slam2_e_tpu_torch.ops.camera import Camera\n"
         "from orb_slam2_e_tpu_torch.utils.synthetic import SyntheticScene, "
         "orbit_trajectory\n"

@@ -241,3 +241,100 @@ def test_cuda_kernel_matches_plain(shape):
     assert kernels.fast_nms_blur.launches == before + 1
     assert torch.equal(score_k, score_p)
     assert (blur_k - blur_p).abs().max().item() <= KERNEL_BLUR_ATOL
+
+
+# ---------------------------------------------------------------------------
+# The batch entry: the pyramids of several lanes in one launch
+# ---------------------------------------------------------------------------
+
+def _lanes(n_lanes, shapes, seed=0):
+    return [[torch.from_numpy(_image(shape, seed=seed + 100 * b + k))
+             for k, shape in enumerate(shapes)] for b in range(n_lanes)]
+
+
+@pytest.mark.parametrize("n_lanes", [1, 3])
+def test_batch_layout_lanes_contiguous_per_level(n_lanes):
+    """Level l of lane b starts right after lane b - 1's; each level's
+    block of lanes starts on a 128-byte line; blocks do not overlap."""
+    offsets, total = kernels.batch_layout(ODD_SHAPES, n_lanes)
+    end = 0
+    for (h, w), lane_offsets in zip(ODD_SHAPES, offsets):
+        assert lane_offsets[0] % 32 == 0 and lane_offsets[0] >= end
+        assert lane_offsets == [lane_offsets[0] + b * h * w
+                                for b in range(n_lanes)]
+        end = lane_offsets[-1] + h * w
+    assert end <= total and total % 32 == 0
+
+
+def test_batch_on_cpu_takes_plain_lane_by_lane():
+    lanes = _lanes(3, ODD_SHAPES)
+    before = kernels.fast_nms_blur.launches
+    got = kernels.fast_nms_blur_batch(lanes, TH_HIGH, TH_LOW)
+    assert kernels.fast_nms_blur.launches == before
+    for b, levels in enumerate(lanes):
+        want = kernels.fast_nms_blur_pyramid_plain(levels, TH_HIGH, TH_LOW)
+        for (score, blur), (ws, wb) in zip(got, want):
+            assert torch.equal(score[b], ws) and torch.equal(blur[b], wb)
+
+
+@pytest.mark.parametrize("bad", ["shapes_differ", "too_many"])
+def test_batch_rejects_what_the_kernel_does_not_take(bad):
+    lanes = {"shapes_differ": [_lanes(1, ODD_SHAPES)[0],
+                               _lanes(1, ODD_SHAPES[:2])[0]],
+             "too_many": _lanes(2, [(4, 4)] * (kernels.MAX_LEVELS + 1))}[bad]
+    with pytest.raises(ValueError):
+        kernels.fast_nms_blur_batch(lanes, TH_HIGH, TH_LOW)
+
+
+def test_batch_past_the_level_table_keeps_every_lane():
+    """33 lanes x 2 levels overflow the 64-row level table: on the card the
+    entry launches once per group of 32 lanes; on the CPU every lane still
+    equals its own plain pyramid."""
+    lanes = _lanes(kernels.MAX_LEVELS // 2 + 1, [(6, 7), (5, 5)], seed=9)
+    got = kernels.fast_nms_blur_batch(lanes, TH_HIGH, TH_LOW)
+    assert [tuple(s.shape) for s, _ in got] == [(33, 6, 7), (33, 5, 5)]
+    for b, levels in enumerate(lanes):
+        want = kernels.fast_nms_blur_pyramid_plain(levels, TH_HIGH, TH_LOW)
+        for (score, blur), (ws, wb) in zip(got, want):
+            assert torch.equal(score[b], ws) and torch.equal(blur[b], wb)
+
+
+@pytest.mark.cuda
+def test_cuda_batch_of_8_pyramids_in_one_launch():
+    """8 lanes x 8 levels of 480x640 frames (the kernel's 64-level table
+    full): one launch, each lane equal to the plain twin and to its own
+    one-pyramid launch."""
+    dev = cuda_device()
+    lanes = [[img.to(dev) for img in levels]
+             for levels in _lanes(8, LEVEL_SHAPES, seed=5)]
+    before = kernels.fast_nms_blur.launches
+    got = kernels.fast_nms_blur_batch(lanes, TH_HIGH, TH_LOW)
+    torch.cuda.synchronize()
+    assert kernels.fast_nms_blur.launches == before + 1
+    assert len(lanes) * len(LEVEL_SHAPES) == kernels.MAX_LEVELS
+    for b, levels in enumerate(lanes):
+        want = kernels.fast_nms_blur_pyramid_plain(levels, TH_HIGH, TH_LOW)
+        one = kernels.fast_nms_blur_pyramid(levels, TH_HIGH, TH_LOW)
+        torch.cuda.synchronize()
+        for (score, blur), (ws, wb), (os_, ob) in zip(got, want, one):
+            assert torch.equal(score[b], ws) and torch.equal(score[b], os_)
+            assert (blur[b] - wb).abs().max().item() <= KERNEL_BLUR_ATOL
+            assert torch.equal(blur[b], ob)
+
+
+@pytest.mark.cuda
+def test_cuda_batch_past_the_level_table_launches_per_group():
+    """9 lanes x 8 levels: two launches (8 lanes, then 1), each lane equal
+    to its own one-pyramid launch."""
+    dev = cuda_device()
+    lanes = [[img.to(dev) for img in levels]
+             for levels in _lanes(9, LEVEL_SHAPES, seed=6)]
+    before = kernels.fast_nms_blur.launches
+    got = kernels.fast_nms_blur_batch(lanes, TH_HIGH, TH_LOW)
+    torch.cuda.synchronize()
+    assert kernels.fast_nms_blur.launches == before + 2
+    for b, levels in enumerate(lanes):
+        one = kernels.fast_nms_blur_pyramid(levels, TH_HIGH, TH_LOW)
+        torch.cuda.synchronize()
+        for (score, blur), (os_, ob) in zip(got, one):
+            assert torch.equal(score[b], os_) and torch.equal(blur[b], ob)
