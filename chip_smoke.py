@@ -10,7 +10,8 @@ entry. Times it by replaying a CUDA graph of back-to-back launches, at level
 0 and for the pyramid, beside the baseline, the wrapper's call rate, the
 plain version and the card's bound for the same work. Then drives
 `SlamSystem` on the card through eight phases on synthetic 640x480 scenes
-(8 levels, 1000 features), and the parallel package through a ninth, each
+(8 levels, 1000 features), the parallel package through a ninth and the
+real-texture proxy sequences through a tenth, each
 through the entry point a user calls, with everything, loop closing
 included, at its default unless said:
 
@@ -57,12 +58,23 @@ included, at its default unless said:
    on the same features; the batched and the single-lane rate and the
    launches of a step. Then, on a one-rank NCCL group, the distributed BA
    of phase 1's global BA problem against the single solve, the sharded
-   BoW query against the database's, and the dryrun twin.
+   BoW query against the database's, and the dryrun twin;
+10. the real-texture proxies (`orb_slam2_e_tpu_torch/tools`): one frame
+   each of the TUM room, the breathing endoscopy surface, the KITTI and
+   the distorted EuRoC cameras rendered on the card and on the CPU by the
+   same code, held to each other; the endoscopy configuration's pyramid (6
+   levels at scale 1.1 from 480x360) through the kernel, bit for bit
+   against the plain twin; then 40 frames of proxy_xyz rendered on the
+   card by `make_proxy_dataset.main` and tracked by `run_proxy_eval.main`
+   through `examples.rgbd_tum` and `examples.mono_tum`, at the JAX
+   package's end-to-end gates, beside the reference's numbers on the same
+   files.
 
 Each phase checks tracking, trajectory error, its own gates and that every
 extraction went through the kernel in exactly one launch (the launch count
 is zeroed before the phase and read after it; in phase 9 one launch per
-step for all lanes). Prints per-stage median ms,
+step for all lanes). Prints per-stage median ms, each phase's seconds and
+the total,
 the card's name and power limit, a JSON line describing the kernel, and as
 its last line {"ok": true, "device": {...}}. Exits non-zero, without that
 line, when there is no CUDA device or any phase fails. Imports no JAX.
@@ -129,6 +141,18 @@ DEFORM_REF_RELOCS, DEFORM_REF_TP, DEFORM_SLACK = 7, 6, 1
 # the parallel phase: bench.py's lanes (B = 8, staggered starts, one
 # warm-up and PAR_STEPS timed steps) on the RGB-D phase's map
 PAR_LANES, PAR_STEPS = 8, 12
+# the tenth phase: the real-texture proxies of orb_slam2_e_tpu_torch/tools
+PROXY_FRAMES = 40        # frames of proxy_xyz (all four textures) tracked
+# a card render against the CPU's: grey levels and metres apart, as
+# tests/test_torch_proxy_render.py measures the port against the reference
+# on the CPU (tests/_torch_proxy.py: equal, bit for bit)
+PROXY_RENDER_MAX = 0
+PROXY_DEPTH_ATOL = 0.0
+# the reference (examples/rgbd_tum.py and mono_tum.py of the JAX package,
+# on the CPU) on the same 40 files: ATE in metres, frames in the trajectory
+# file, the frame mono initialized at
+PROXY_REF = {"rgbd": {"ate": 0.0061, "tracked": 40},
+             "mono": {"ate": 0.0200, "tracked": 34, "init": 6}}
 # batched lane vs single-lane step on the same features: flags equal, poses
 # within this (the pose LM sums in another order under torch.vmap)
 PAR_POSE_ATOL = 1e-4
@@ -1649,7 +1673,179 @@ def run_parallel(orbit, rgbd_state):
     return launches, record
 
 
+def check_proxy_render():
+    """One frame of each proxy scene rendered on the card and on the CPU by
+    the same code: the TUM room (640x480, 11 planes), the endoscopy surface
+    (480x360, 117 quads breathing at amplitude 0.12), the KITTI camera
+    (640x256) and the distorted EuRoC rays (512x384). Returns the endo
+    frame rendered on the card."""
+    from orb_slam2_e_tpu_torch.tools import (make_proxy_dataset as mpd,
+                                             make_proxy_endo as mpe,
+                                             make_proxy_euroc as mpu,
+                                             make_proxy_kitti as mpk,
+                                             proxy_render as pr)
+    t0 = time.perf_counter()
+    (R, t), = mpd.trajectory("xyz", 21)[0][20:]
+    room = pr.build_room(0)
+    (Re, te), = mpe._trajectory(31, "reloc")[0][30:]
+    endo = mpe._make_patches(mpe._surface_points(0.12, 30 / mpe.FPS, 5),
+                             mpe._patch_textures(5))
+    (Rk, tk), = mpk.forward_trajectory(31)[0][30:]
+    (Ru, tu), = mpd.trajectory("xyz", 11)[0][10:]
+    dirs = mpu._inverse_distort_dirs()
+    kitti_room, euroc_room = pr.build_room(1), pr.build_room(2)
+    print(f"[proxy] textures and scenes built in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    cases = {
+        "room 640x480": lambda dev: pr.render(room, R, t, device=dev),
+        "endo 480x360": lambda dev: pr.render(
+            endo, Re, te, near=mpe.NEAR, far=mpe.FAR, size=(mpe.W, mpe.H),
+            intrinsics=(mpe.FX, mpe.FY, mpe.CX, mpe.CY), device=dev),
+        "kitti 640x256": lambda dev: pr.render(
+            kitti_room, Rk, tk, size=(mpk.W, mpk.H),
+            intrinsics=(mpk.FX, mpk.FY, mpk.CX, mpk.CY), device=dev),
+        "euroc 512x384": lambda dev: pr.render(euroc_room, Ru, tu,
+                                               dirs=dirs, device=dev)}
+    endo_img = None
+    for name, fn in cases.items():
+        fn("cuda")                        # the packed textures go up once
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img_g, dep_g = fn("cuda")         # returns host arrays: synchronized
+        ms_g = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        img_c, dep_c = fn("cpu")
+        ms_c = (time.perf_counter() - t0) * 1e3
+        d = np.abs(img_g.astype(np.int16) - img_c.astype(np.int16))
+        share = float((d > 0).mean())
+        dd = float(np.abs(dep_g - dep_c).max())
+        print(f"[proxy] render {name}: card {ms_g:.1f} ms, CPU {ms_c:.1f} "
+              f"ms (host clocks); grey levels apart at most {int(d.max())} "
+              f"on {share:.2e} of the pixels, depth at most {dd:.3e} m "
+              f"apart, hit masks equal: "
+              f"{bool(np.array_equal(dep_g > 0, dep_c > 0))}")
+        expect(int(d.max()) <= PROXY_RENDER_MAX, f"proxy render {name}: "
+               f"{int(d.max())} grey levels on {share:.2e} of the pixels")
+        expect(dd <= PROXY_DEPTH_ATOL, f"proxy render {name}: depth {dd}")
+        if name.startswith("endo"):
+            endo_img = img_g
+    return endo_img
+
+
+def check_endo_pyramid(img):
+    """The endoscopy configuration's pyramid (6 levels at scale 1.1 from
+    480x360, FAST thresholds 24 / 7) through the kernel in one launch,
+    against the plain twin."""
+    from orb_slam2_e_tpu_torch.ops import kernels, orb
+    from orb_slam2_e_tpu_torch.tools import make_proxy_endo as mpe
+    ex = orb.OrbExtractor(n_features=1200, scale_factor=1.1, n_levels=6,
+                          ini_th_fast=24, min_th_fast=7)
+    levels = ex._pyramid(torch.as_tensor(img, device="cuda"))
+    expect(levels[0].shape == (mpe.H, mpe.W), "endo pyramid shape")
+    before = kernels.fast_nms_blur.launches
+    got = kernels.fast_nms_blur_pyramid(levels, ex.ini_th, ex.min_th)
+    expect(kernels.fast_nms_blur.launches == before + 1,
+           "the endo pyramid took more than one launch")
+    want = kernels.fast_nms_blur_pyramid_plain(levels, ex.ini_th, ex.min_th)
+    torch.cuda.synchronize()
+    for lvl, (g, w) in enumerate(zip(got, want)):
+        expect_equal(g, w, f"endo pyramid level {lvl}")
+    print(f"[proxy] endo pyramid {[tuple(v.shape) for v in levels]} in one "
+          f"launch: scores equal, blur diff 0")
+
+
+def run_proxy():
+    """The real-texture proxies on the card. The four scenes rendered on
+    the card against the CPU; the endoscopy pyramid through the kernel;
+    then what a user runs: `make_proxy_dataset.main` renders PROXY_FRAMES
+    frames of proxy_xyz on the card and writes them, and
+    `run_proxy_eval.main` tracks them with `examples.mono_tum` and
+    `examples.rgbd_tum`, holding RGB-D to n - 1 frames tracked at SE3 ATE
+    < 0.08 m and mono to initialization by frame 12 at Sim3 ATE < 0.10 m.
+    Returns the kernel launches of the two examples."""
+    import contextlib
+    import io
+    import tempfile
+    from orb_slam2_e_tpu_torch.examples import mono_tum, rgbd_tum
+    from orb_slam2_e_tpu_torch.ops import kernels
+    from orb_slam2_e_tpu_torch.tools import (make_proxy_dataset,
+                                             run_proxy_eval)
+    endo = check_proxy_render()
+    check_endo_pyramid(endo)
+
+    stage_ms = {}
+
+    def instrumented(module, key):
+        opened = module.open_system
+
+        def open_system(*args, **kwargs):
+            s, slam = opened(*args, **kwargs)
+            stage_ms[key] = instrument(slam)
+            return s, slam
+        return open_system
+
+    saved = {m: m.open_system for m in (mono_tum, rgbd_tum)}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            make_proxy_dataset.main([os.path.join(tmp, "proxy_xyz"),
+                                     "--frames", str(PROXY_FRAMES),
+                                     "--device", "cuda"])
+        print(f"[proxy] make_proxy_dataset: {PROXY_FRAMES} frames of "
+              f"proxy_xyz rendered on the card and written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        mono_tum.open_system = instrumented(mono_tum, "mono")
+        rgbd_tum.open_system = instrumented(rgbd_tum, "rgbd")
+        kernels.fast_nms_blur.launches = 0
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                run_proxy_eval.main([
+                    "--frames", str(PROXY_FRAMES), "--seqs", "xyz",
+                    "--device", "cuda", "--data-dir", tmp,
+                    "--out-dir", os.path.join(tmp, "eval")])
+        except SystemExit as e:
+            print(out.getvalue()[-3000:])
+            raise AssertionError(f"run_proxy_eval: {e}") from None
+        finally:
+            for m, fn in saved.items():
+                m.open_system = fn
+        launches = kernels.fast_nms_blur.launches
+        with open(os.path.join(tmp, "eval", "PROXY_RESULTS.json")) as f:
+            res = json.load(f)
+    for line in out.getvalue().splitlines():
+        if line.startswith(("mono_xyz:", "rgbd_xyz:", "median", "mean")):
+            print(f"[proxy] run_proxy_eval> {line}")
+    for sensor, ref in PROXY_REF.items():
+        r = res[f"{sensor}_xyz"]
+        init = (f", initialized at frame {r['initialized_at_frame']} "
+                f"(reference {ref['init']})" if sensor == "mono" else "")
+        print(f"[proxy] {sensor}: {r['frames_tracked']} of {PROXY_FRAMES} "
+              f"frames (reference {ref['tracked']}), "
+              f"{r['alignment'].split()[0]} ATE {r['ate_rmse_frames_m']:.4f}"
+              f" m (reference {ref['ate']}){init}; {r['frames_per_s']:.2f} "
+              f"frames/s, {r['seconds']:.1f} s")
+        for key, v in stage_ms[sensor].items():
+            if v:
+                print(f"[proxy] {sensor} stage {key}: median "
+                      f"{statistics.median(v):.2f} ms over {len(v)} calls")
+    print(f"[proxy] fast_nms_blur launches: {launches}")
+    expect(res["rgbd_xyz"]["frames_tracked"] >= PROXY_FRAMES - 1
+           and res["rgbd_xyz"]["ate_rmse_frames_m"] < ATE_MAX,
+           f"proxy rgbd {res['rgbd_xyz']}")
+    expect(res["mono_xyz"]["initialized_at_frame"] <= MONO_INIT_BY
+           and res["mono_xyz"]["ate_rmse_frames_m"] < MONO_ATE_MAX,
+           f"proxy mono {res['mono_xyz']}")
+    expect(launches == 2 * PROXY_FRAMES, f"proxy launches {launches}")
+    expect("jax" not in sys.modules and "cv2" not in sys.modules
+           and "matplotlib" not in sys.modules, "jax, cv2 or matplotlib "
+           "was imported")
+    return launches
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1677,22 +1873,25 @@ def main() -> int:
         + phase(run_loc, orbit, rgbd_state) + phase(run_deform)
         + phase(run_disk, *orbit))
     n_par, par_record = phase(run_parallel, orbit, rgbd_state)
-    record["launches"] += n_par
+    record["launches"] += n_par + phase(run_proxy)
     record.update(par_record)
     # one launch per extraction: 30 + 20 + 2 x 10 + 25 on the orbit, 96
     # around the ring, 6 + 12 + 30 in localization-only mode, 20 + 20 on
     # the deforming surface (none in the deformable phase's part A), 12 + 20
     # through the examples from disk; in the parallel phase one per step
     # for all 8 lanes (13), 8 bootstrap frames, 13 single-lane frames and
-    # one profiled step of each kind
+    # one profiled step of each kind; 40 + 40 proxy frames through the
+    # examples
     expect(record["launches"] == 75 + 2 * STEREO_FRAMES + LOOP_FRAMES
            + LOC_ORBIT_FRAMES
            + LOC_MAPPED + LOC_FRAMES + DEFORM_MAPPED + DEFORM_FRAMES
            + DISK_FRAMES + DISK_MONO_FRAMES
-           + PAR_LANES + 2 * (PAR_STEPS + 1) + 2,
+           + PAR_LANES + 2 * (PAR_STEPS + 1) + 2 + 2 * PROXY_FRAMES,
            f"launch total {record['launches']}")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {

@@ -399,13 +399,20 @@ def correct_and_optimize_graph(state: MapState, kf_cur, kf_loop,
 
 
 def search_and_fuse(cam: Camera, state: MapState, kf_cur, kf_loop,
-                    scale_factor: float = 1.2, n_levels: int = 8):
+                    scale_factor: float = 1.2, n_levels: int = 8,
+                    trace: list | None = None):
     """Project the loop-side landmarks into every keyframe of the corrected
     neighborhood and fuse duplicates, the loop point replacing the local
     one (reference LoopClosing::SearchAndFuse with ORBmatcher::Fuse, th = 4,
     and MapPoint::Replace). The map is threaded through the 16 keyframes
     one after the other, without a host read. Returns (state, n_fused,
-    clip)."""
+    clip).
+
+    `trace`, a list, receives one dict of 0-d tensors per slot of the
+    neighborhood: how many loop landmarks survive each test of the
+    projection in turn (live, in front, in the image, in the scale window,
+    a feature in the search window, the descriptor distance, one per
+    feature), and how many bind or replace."""
     K, P, F = state.K, state.P, state.F
     dev = state.device
     cur, loop = _idx1(kf_cur, dev), _idx1(kf_loop, dev)
@@ -426,9 +433,9 @@ def search_and_fuse(cam: Camera, state: MapState, kf_cur, kf_loop,
         R, t = lie.pose7_unpack(_row(state.kf_pose7, kf))
         xc = lie.se3_apply(R, t, state.lm_xyz[lids])
         uv, z = cam_ops.project(cam, xc)
-        best, d1 = _projection_match(cam, state, lids, lsub & c_ok[c], xc,
-                                     uv, z, one, kf, 4.0, scale_factor,
-                                     n_levels)
+        live = lsub & c_ok[c]
+        best, d1 = _projection_match(cam, state, lids, live, xc, uv, z, one,
+                                     kf, 4.0, scale_factor, n_levels)
         midx = matching.resolve_duplicates(
             torch.where(d1 <= matching.TH_LOW, best, INVALID).to(_I32), d1,
             F)
@@ -453,6 +460,19 @@ def search_and_fuse(cam: Camera, state: MapState, kf_cur, kf_loop,
         state = state._replace(kf_kp_point=remapped,
                                lm_valid=state.lm_valid & ~dead)
         fused = fused + bindA.sum() + bindB.sum()
+        if trace is not None:
+            seen = live & (z > 0)
+            inside = seen & cam_ops.in_image(cam, uv)
+            dist = torch.linalg.norm(xc, dim=1)
+            scaled = (inside & (dist >= 0.8 * state.lm_min_dist[lids])
+                      & (dist <= 1.2 * state.lm_max_dist[lids]))
+            trace.append({"kf": kf[0], "live": live.sum(),
+                          "in_front": seen.sum(), "in_image": inside.sum(),
+                          "scale_window": scaled.sum(),
+                          "candidate": (d1 < matching.BIG).sum(),
+                          "desc_dist": (d1 <= matching.TH_LOW).sum(),
+                          "one_per_feature": pair_ok.sum(),
+                          "bound": bindA.sum(), "replaced": bindB.sum()})
     return state, fused, clip
 
 

@@ -193,9 +193,10 @@ def test_convert_rejects_missing_fields():
 
 
 def test_import_and_one_frame_leave_jax_out(tmp_path):
-    """The port imported, its parallel package included, and one RGB-D,
-    one monocular and one stereo frame run, in a fresh process: neither jax
-    nor the JAX package is loaded."""
+    """The port imported, its parallel package and its proxy tools
+    included, and one RGB-D, one monocular and one stereo frame run, in a
+    fresh process: neither jax nor the JAX package is loaded, nor OpenCV or
+    matplotlib (the machine with the card has none of them)."""
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -204,6 +205,10 @@ def test_import_and_one_frame_leave_jax_out(tmp_path):
         "import orb_slam2_e_tpu_torch.parallel.dist_ba\n"
         "import orb_slam2_e_tpu_torch.parallel.dist_db\n"
         "import orb_slam2_e_tpu_torch.tools.dryrun_multichip\n"
+        "from orb_slam2_e_tpu_torch.tools import make_proxy_dataset, "
+        "make_proxy_endo, make_proxy_euroc, make_proxy_kitti, proxy_render, "
+        "repeat_loop_phase, run_endo_eval, run_proxy_eval\n"
+        "assert len(proxy_render.load_real_textures()) == 4\n"
         "from orb_slam2_e_tpu_torch.ops.camera import Camera\n"
         "from orb_slam2_e_tpu_torch.utils.synthetic import SyntheticScene, "
         "orbit_trajectory\n"
@@ -226,12 +231,13 @@ def test_import_and_one_frame_leave_jax_out(tmp_path):
         "assert s.frame_id == m.frame_id == st.frame_id == 0\n"
         "assert m.state == S.TrackState.NOT_INITIALIZED\n"
         "print('jax' in sys.modules, any(m.startswith('orb_slam2_e_tpu.') "
-        "or m == 'orb_slam2_e_tpu' for m in sys.modules))\n")
+        "or m == 'orb_slam2_e_tpu' for m in sys.modules), "
+        "'cv2' in sys.modules, 'matplotlib' in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.split()[-2:] == ["False", "False"], res.stdout
+    assert res.stdout.split()[-4:] == ["False"] * 4, res.stdout
 
 
 # Nothing is refused any more. Every kind was refused once with

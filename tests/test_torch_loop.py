@@ -848,6 +848,40 @@ def test_search_and_fuse_matches(seam, corrected):
     assert TLC.N_FUSE_PTS == JLC.N_FUSE_PTS == 4096
 
 
+
+def test_search_and_fuse_trace_and_cpu_rerun(seam, corrected, tmp_path,
+                                             monkeypatch, capsys):
+    """The stage trace of `search_and_fuse` changes nothing, its counts
+    shrink test by test and its binds add up to the landmarks fused; the
+    loop-phase diagnosis reruns the call on CPU copies, prints both and
+    saves the inputs of a fusion under POOR_FUSION."""
+    from orb_slam2_e_tpu_torch.tools import repeat_loop_phase as rlp
+    _, _, _, _, cam_t = seam
+    (sj2, _, _), _ = corrected
+    st2 = convert.map_state_from_numpy(jnp_dict(sj2), "cpu")
+    f0, n0, _ = TLC.search_and_fuse(cam_t, st2, SEAM_CUR, SEAM_LOOP, 1.2, 4)
+    trace = []
+    f1, n1, _ = TLC.search_and_fuse(cam_t, st2, SEAM_CUR, SEAM_LOOP, 1.2, 4,
+                                    trace=trace)
+    assert int(n1) == int(n0)
+    assert all(torch.equal(a, b) for a, b in zip(f0, f1))
+    rows = rlp._table(trace)
+    assert rows and sum(r[-2] + r[-1] for r in rows) == int(n0)
+    for r in rows:
+        assert all(a >= b for a, b in zip(r[1:8], r[2:8])), r
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(rlp, "POOR_FUSION", int(n0) + 1)
+    log = []
+    fuse = rlp.fuse_on_both(TLC.search_and_fuse, 7, log, "cases")
+    _, n2, _ = fuse(cam_t, st2, SEAM_CUR, SEAM_LOOP, 1.2, 4)
+    assert int(n2) == int(n0) and log == [
+        {"seed": 7, "card": int(n0), "cpu": int(n0), "differ": {}}]
+    assert "fused %d on the card, %d on the CPU" % (int(n0), int(n0)) \
+        in capsys.readouterr().out
+    case = np.load(tmp_path / "cases" / "fuse_case_seed7.npz")
+    assert int(case["kf_cur"]) == SEAM_CUR
+    assert np.array_equal(case["map_lm_xyz"], st2.lm_xyz.numpy())
+
 def test_gba_problem_matches(seam, corrected):
     _, _, _, cam_j, cam_t = seam
     (sj2, _, _), _ = corrected
