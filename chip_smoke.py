@@ -10,10 +10,12 @@ entry. Times it by replaying a CUDA graph of back-to-back launches, at level
 0 and for the pyramid, beside the baseline, the wrapper's call rate, the
 plain version and the card's bound for the same work. Then drives
 `SlamSystem` on the card through eight phases on synthetic 640x480 scenes
-(8 levels, 1000 features), the parallel package through a ninth and the
-real-texture proxy sequences through a tenth, each
-through the entry point a user calls, with everything, loop closing
-included, at its default unless said:
+(8 levels, 1000 features), the parallel package through a ninth, the
+real-texture proxy sequences through a tenth and the pipelined frame loop
+through an eleventh, each through the entry point a user calls, with
+everything, loop closing included, at its default unless said. Phases 1-7
+run the synchronous frame loop (`pipeline=False`); the examples of phases
+8 and 10 run the pipelined one, as `SystemConfig.from_settings` gives it:
 
 1. RGB-D, 30 frames of the benchmark's orbit (camera fx=fy=500);
 2. monocular, the benchmark's configuration (bench.py), 20 frames;
@@ -68,16 +70,26 @@ included, at its default unless said:
    card by `make_proxy_dataset.main` and tracked by `run_proxy_eval.main`
    through `examples.rgbd_tum` and `examples.mono_tum`, at the JAX
    package's end-to-end gates, beside the reference's numbers on the same
-   files.
+   files;
+11. the pipelined frame loop at `SystemConfig()` defaults: phase 1's 30
+   frames (every frame after the first through a super-step; the frames
+   whose keyframe the host counted printed beside the reference's); phase
+   4's blanked run, pipelined, whose lost frames and relocalizations must
+   be the reference's; then both loops on the next frames from the same
+   state (the system and a copy of it switched to `pipeline=False`, in
+   turns): frames/s, and synchronizing calls, launches and device-busy ms
+   per frame under `torch.profiler`.
 
 Each phase checks tracking, trajectory error, its own gates and that every
 extraction went through the kernel in exactly one launch (the launch count
 is zeroed before the phase and read after it; in phase 9 one launch per
-step for all lanes). Prints per-stage median ms, each phase's seconds and
-the total,
-the card's name and power limit, a JSON line describing the kernel, and as
-its last line {"ok": true, "device": {...}}. Exits non-zero, without that
-line, when there is no CUDA device or any phase fails. Imports no JAX.
+step for all lanes; in phase 11 the frames of the two loops' comparison are
+counted apart). Tracked frames are counted from the trajectory after
+`get_trajectory()`, which settles the pipelined loop's verdicts. Prints
+per-stage median ms, each phase's seconds and the total, the card's name
+and power limit, a JSON line describing the kernel, and as its last line
+{"ok": true, "device": {...}}. Exits non-zero, without that line, when
+there is no CUDA device or any phase fails. Imports no JAX.
 
     python3 chip_smoke.py --kernel-only
 
@@ -153,6 +165,21 @@ PROXY_DEPTH_ATOL = 0.0
 # file, the frame mono initialized at
 PROXY_REF = {"rgbd": {"ate": 0.0061, "tracked": 40},
              "mono": {"ate": 0.0200, "tracked": 34, "init": 6}}
+# the pipelined loop (the eleventh phase): the orbit's first 30 frames at
+# SystemConfig() defaults, then PIPE_STEADY + PIPE_PROFILED frames through
+# it and through a copy of it switched to the synchronous loop, and the
+# blanked run of the fourth phase (frame BLANK black, 25 frames)
+PIPE_FRAMES, PIPE_BLANK_FRAMES = 30, 25
+PIPE_STEADY, PIPE_PROFILED = 6, 2
+# the reference's pipelined loop on the same frames, on the CPU at the same
+# configuration (the JAX package's SlamSystem, SystemConfig(), RGB-D;
+# printed by `python tests/test_torch_pipeline.py chip orbit|blank`): the
+# frames whose keyframe its host counted (30 inserted, 18 culled, 12 kept,
+# SE3 ATE 0.0069 m), and the blanked run's lost frames and
+# relocalizations (frame 21, queued before the host read frame 20's
+# failure, tracks against the reference keyframe: no relocalization)
+PIPE_REF = {"kf_frames": list(range(PIPE_FRAMES)), "lost": [BLANK],
+            "relocs": 0}
 # batched lane vs single-lane step on the same features: flags equal, poses
 # within this (the pose LM sums in another order under torch.vmap)
 PAR_POSE_ATOL = 1e-4
@@ -477,25 +504,37 @@ def check_kernel(image0: np.ndarray):
     return record
 
 
+# (stage, method of SlamSystem) pairs timed by `instrument`; the pipelined
+# loop's stages are `super-step` (extraction, tracking, the keyframe
+# decision and a queued insertion), its `insert+map` and `drain`
+STAGES = [("extract", "_make_frame_inputs"), ("track", "_track_step"),
+          ("super-step", "_sstep"), ("insert+map", "_insert_keyframe"),
+          ("insert+map", "_super_insert"), ("drain", "_drain_pending"),
+          ("relocalize", "_relocalize"), ("init", "_initialize"),
+          ("loop query", "_loop_dispatch"), ("loop harvest", "_loop_harvest"),
+          ("gba chunk", "_advance_gba")]
+
+
 def instrument(slam):
     """Time the system's stages between synchronizations. Returns
     {stage: [ms]}. `insert+map` contains the loop closer's stages, which
-    run behind every inserted keyframe: `loop query` (the candidate query
-    queued for the new keyframe), `loop harvest` (the previous query read,
-    no closure) and `closure` (a harvest that closed a loop: Sim3, ladder,
+    run behind every inserted keyframe (on the pipelined loop: behind the
+    drain that reads its flags): `loop query` (the candidate query queued
+    for the new keyframe), `loop harvest` (the previous query read, no
+    closure) and `closure` (a harvest that closed a loop: Sim3, ladder,
     correction, essential graph, fusion, the global BA's set-up). `gba
-    chunk` is one chunk of the global BA, queued behind a frame's step."""
-    stages = {"extract": "_make_frame_inputs", "track": "_track_step",
-              "insert+map": "_insert_keyframe", "relocalize": "_relocalize",
-              "init": "_initialize", "loop query": "_loop_dispatch",
-              "loop harvest": "_loop_harvest", "gba chunk": "_advance_gba"}
-    stage_ms = {k: [] for k in list(stages) + ["closure"]}
+    chunk` is one chunk of the global BA, queued behind a frame's step.
+    The synchronizations take the pipelined loop's overlap away: its
+    stage ms are the work's, its frames/s here a lower bound."""
+    stage_ms = {k: [] for k, _ in STAGES}
+    stage_ms["closure"] = []
 
     def timed(key, fn):
         def wrapper(*args, **kwargs):
             # a stage that has nothing to do is not a sample of it
             idle = {"loop harvest": slam._loop_pending is None,
-                    "gba chunk": slam._gba is None}.get(key, False)
+                    "gba chunk": slam._gba is None,
+                    "drain": not slam._pending}.get(key, False)
             closed = slam.stats["loops_closed"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -511,9 +550,15 @@ def instrument(slam):
             return out
         return wrapper
 
-    for key, attr in stages.items():
+    for key, attr in STAGES:
         setattr(slam, attr, timed(key, getattr(slam, attr)))
     return stage_ms
+
+
+def uninstrument(slam):
+    """Take `instrument`'s timers off `slam`."""
+    for _, attr in STAGES:
+        slam.__dict__.pop(attr, None)
 
 
 def drive(name, slam, inputs, centers, with_scale, first_frame=0,
@@ -521,9 +566,12 @@ def drive(name, slam, inputs, centers, with_scale, first_frame=0,
     """One phase: `inputs[k]` fed to the sensor's entry point for every
     frame, timed per stage between synchronizations. A system that an
     earlier phase drove goes on from `first_frame` with the `stage_ms` it
-    was instrumented with. Returns a summary."""
+    was instrumented with. Tracked frames are counted from the trajectory
+    after `get_trajectory()`, which settles the pipelined loop's pending
+    verdicts (a pose it returned may be revoked there). Returns a
+    summary."""
     from orb_slam2_e_tpu_torch.models.system import Sensor
-    from orb_slam2_e_tpu_torch.ops import kernels
+    from orb_slam2_e_tpu_torch.ops import kernels, lie
     from orb_slam2_e_tpu_torch.utils.trajectory import ate_rmse
     if stage_ms is None:
         stage_ms = instrument(slam)
@@ -536,13 +584,13 @@ def drive(name, slam, inputs, centers, with_scale, first_frame=0,
     kernels.fast_nms_blur.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    est, frame_ms, vo_frames = [], {"chunk": [], "plain": []}, []
+    frame_ms, vo_frames = {"chunk": [], "plain": []}, []
     events = {"loops_closed": [], "gba_completed": []}
     for k, args in enumerate(inputs):
         chunk = slam._gba is not None     # a global-BA chunk rides behind
         counts = {key: slam.stats.get(key, 0) for key in events}
         tf = time.perf_counter()
-        pose = entry(*args, (first_frame + k) / 30.0)
+        entry(*args, (first_frame + k) / 30.0)
         frame_ms["chunk" if chunk else "plain"].append(
             (time.perf_counter() - tf) * 1e3)
         if slam.vo_mode:
@@ -550,14 +598,22 @@ def drive(name, slam, inputs, centers, with_scale, first_frame=0,
         for key, before in counts.items():
             if slam.stats.get(key, 0) > before:
                 events[key].append(k)
-        est.append(None if pose is None else
-                   (-pose[0].T @ pose[1]).double().cpu().numpy())
+    _, Rwc, twc = slam.get_trajectory()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.fast_nms_blur.launches
 
-    tracked = [k for k, c in enumerate(est) if c is not None]
-    _, Rwc, twc = slam.get_trajectory()
+    entries = [p7 for _, p7 in slam.trajectory[-len(inputs):]]
+    if len(entries) != len(inputs):
+        raise AssertionError(f"{name}: {len(entries)} trajectory entries "
+                             f"for {len(inputs)} frames (a reset)")
+    tracked = [k for k, p7 in enumerate(entries) if p7 is not None]
+    est = [None] * len(inputs)
+    if tracked:
+        R, t = lie.pose7_unpack(torch.stack([entries[k] for k in tracked]))
+        for k, c in zip(tracked, (-R.transpose(1, 2) @ t[..., None])[
+                ..., 0].double().cpu().numpy()):
+            est[k] = c
     if not (np.isfinite(Rwc).all() and np.isfinite(twc).all()
             and twc.shape[1:] == (3,) and len(twc) >= len(tracked)):
         raise AssertionError(f"{name}: trajectory not finite or misshaped")
@@ -1200,6 +1256,7 @@ def run_disk(scene, poses, centers):
     import re
     import tempfile
     from orb_slam2_e_tpu_torch.examples import mono_deformable, rgbd_tum
+    from orb_slam2_e_tpu_torch.models.system import SlamSystem
     from orb_slam2_e_tpu_torch.ops import kernels
     from orb_slam2_e_tpu_torch.utils import map_io
     from orb_slam2_e_tpu_torch.utils.trajectory import ate_rmse, load_tum
@@ -1256,14 +1313,26 @@ def run_disk(scene, poses, centers):
                    "rgbd_tum wrote no keyframe trajectory")
             expect("jax" not in sys.modules, "jax was imported")
 
-            # --- mono_deformable on the grey frames, with --save-map
+            # --- mono_deformable on the grey frames, with --save-map. It
+            # saves before `shutdown()` reads the pipelined loop's last
+            # flags: the file holds the host's counters of that moment
+            at_save = []
+            save_map = SlamSystem.save_map
+
+            def counted_save_map(self, path):
+                at_save.append(self.n_keyframes)
+                return save_map(self, path)
             kernels.fast_nms_blur.launches = 0
             out = io.StringIO()
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                mono = mono_deformable.main(
-                    [settings, seq, "--save-map", "map.npz", "--stats",
-                     "StatsReloc.txt", "--device", "cuda"])
+            SlamSystem.save_map = counted_save_map
+            try:
+                with contextlib.redirect_stdout(out):
+                    mono = mono_deformable.main(
+                        [settings, seq, "--save-map", "map.npz", "--stats",
+                         "StatsReloc.txt", "--device", "cuda"])
+            finally:
+                SlamSystem.save_map = save_map
             wall = time.perf_counter() - t0
             n_mono = kernels.fast_nms_blur.launches
             print("".join(f"[disk] mono_deformable> {ln}\n"
@@ -1280,7 +1349,7 @@ def run_disk(scene, poses, centers):
                   f"{'/'.join(kpi.groups()[:3])}, map file "
                   f"{os.path.getsize('map.npz')} bytes, launches {n_mono}")
             expect(mono.cfg.deformable, "mono_deformable: not deformable")
-            expect(int(extra["n_keyframes"]) == mono.n_keyframes
+            expect(at_save == [int(extra["n_keyframes"])]
                    and (back.K, back.P) == (mono.map.K, mono.map.P),
                    "mono_deformable: the saved map reads back differently")
             expect(n_mono == DISK_MONO_FRAMES, f"disk mono launches {n_mono}")
@@ -1844,6 +1913,136 @@ def run_proxy():
     return launches
 
 
+def run_pipeline(orbit):
+    """The pipelined frame loop, the one `SystemConfig()` and every
+    example run: (a) PIPE_FRAMES RGB-D frames of the orbit at the defaults,
+    each frame after the first through `_track_pipelined` (a super-step,
+    the flags read two frames at a time), at the e2e gates, with the frames
+    whose keyframe the host counted beside the reference's; (b) the fourth
+    phase's blanked run, pipelined: its lost frames and relocalizations
+    equal the reference's; (c) both loops on the same frames from the same
+    state: the system of (a) and a copy of it switched to `pipeline=False`
+    take the next PIPE_STEADY frames on the host clock, in turns, then
+    PIPE_PROFILED more each under `torch.profiler`; then the pipelined one
+    takes PIPE_STEADY / 2 more on the host clock, to show what the
+    profiler leaves behind. Returns the launches of (a) and (b); those of
+    (c) are checked apart."""
+    import copy
+    import dataclasses
+    from orb_slam2_e_tpu_torch.models.system import (SlamSystem,
+                                                     SystemConfig, Sensor)
+    from orb_slam2_e_tpu_torch.ops import kernels
+    from orb_slam2_e_tpu_torch.ops.camera import Camera
+    from orb_slam2_e_tpu_torch.tools.profile_step import profile_frames
+    scene, poses, centers = orbit
+    cam = Camera.create(fx=FX, fy=FX, cx=WIDTH / 2, cy=HEIGHT / 2, bf=BF)
+    n = PIPE_FRAMES
+    half = PIPE_STEADY // 2
+    n_all = n + PIPE_STEADY + PIPE_PROFILED + half
+    inputs = [(grey(scene, R, t), scene.depth_map(R, t))
+              for R, t in poses[:n_all]]
+
+    # (a) the defaults
+    slam = SlamSystem(cam, SystemConfig(), Sensor.RGBD, device="cuda")
+    expect(slam.cfg.pipeline and slam.cfg.loop_closing,
+           "pipeline: not the defaults")
+    kf_frames = [0]                       # the initial keyframe
+    process = slam._process_flags
+
+    def counted(fid, flags, tidx):
+        if flags[10] and flags[4] >= 0:
+            kf_frames.append(fid)
+        return process(fid, flags, tidx)
+    slam._process_flags = counted
+    r = drive("pipeline", slam, inputs[:n], centers[:n], with_scale=False)
+    steps = len(r["stage_ms"]["super-step"])
+    print(f"[pipeline] keyframes counted at frames {kf_frames}; the "
+          f"reference's: {PIPE_REF['kf_frames']}")
+    expect(len(r["tracked"]) >= n - 1, f"pipeline tracked {r['tracked']}")
+    expect(r["ate"] < ATE_MAX, f"pipeline ATE {r['ate']}")
+    expect(r["launches"] == n, f"pipeline launches {r['launches']}")
+    relocs = len(r["stage_ms"]["relocalize"])
+    expect(steps + relocs == n - 1 and not r["stage_ms"]["track"],
+           f"pipeline: {steps} super-steps and {relocs} relocalizations "
+           f"for frames 1-{n - 1}")
+
+    # (b) the blanked run
+    blank = SlamSystem(cam, SystemConfig(), Sensor.RGBD, device="cuda")
+    blanked = inputs[:PIPE_BLANK_FRAMES]
+    blanked[BLANK] = (np.zeros_like(blanked[BLANK][0]), blanked[BLANK][1])
+    rb = drive("pipeline-reloc", blank, blanked,
+               centers[:PIPE_BLANK_FRAMES], with_scale=False)
+    lost = sorted(set(range(PIPE_BLANK_FRAMES)) - set(rb["tracked"]))
+    print(f"[pipeline-reloc] lost frames {lost}, relocs "
+          f"{blank.stats['relocs']}; the reference's: {PIPE_REF['lost']}, "
+          f"{PIPE_REF['relocs']}")
+    expect(lost == PIPE_REF["lost"], f"pipeline-reloc lost {lost}")
+    expect(blank.stats["relocs"] == PIPE_REF["relocs"],
+           f"pipeline-reloc relocs {blank.stats['relocs']}")
+    expect(rb["ate"] < ATE_MAX, f"pipeline-reloc ATE {rb['ate']}")
+    expect(rb["launches"] == PIPE_BLANK_FRAMES,
+           f"pipeline-reloc launches {rb['launches']}")
+    # (c) both loops on the same frames from the same state: the timed
+    # frames in turns (pipelined, synchronous, synchronous, pipelined),
+    # then the profiled ones, then the pipelined loop once more on the
+    # host clock, after the profiler
+    uninstrument(slam)
+    del slam._process_flags
+    gen = torch.Generator(device="cuda")
+    gen.set_state(slam.gen.get_state())
+    sync = copy.deepcopy(slam, {id(slam.gen): gen})
+    sync.cfg = dataclasses.replace(slam.cfg, pipeline=False)
+    loops = {"pipelined": slam, "synchronous": sync}
+    wall = {name: 0.0 for name in loops}
+    launches = {name: 0 for name in loops}
+    nxt = {name: n for name in loops}
+
+    def feed(s, k):
+        s.track_rgbd(*inputs[k], k / 30.0)
+
+    def timed_block(name):
+        s = loops[name]
+        kernels.fast_nms_blur.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(nxt[name], nxt[name] + half):
+            feed(s, k)
+        s.get_trajectory()
+        torch.cuda.synchronize()
+        launches[name] += kernels.fast_nms_blur.launches
+        nxt[name] += half
+        return time.perf_counter() - t0
+
+    for name in ("pipelined", "synchronous", "synchronous", "pipelined"):
+        wall[name] += timed_block(name)
+    for name, s in loops.items():
+        kernels.fast_nms_blur.launches = 0
+        p = profile_frames(lambda i: feed(s, n + PIPE_STEADY + i),
+                           PIPE_PROFILED, torch.device("cuda"), host_top=0)
+        s.get_trajectory()
+        launches[name] += kernels.fast_nms_blur.launches
+        frame_ms = wall[name] * 1e3 / PIPE_STEADY
+        share = (f"{100.0 * p['busy_ms'] / frame_ms:.2f}% of the frame "
+                 f"without the profiler" if p["device_events"]
+                 else "share not measured")
+        print(f"[pipeline] {name} loop, frames {n}-{n + PIPE_STEADY - 1} "
+              f"(in turns): {PIPE_STEADY / wall[name]:.2f} frames/s; "
+              f"frames {n + PIPE_STEADY}-{n + PIPE_STEADY + PIPE_PROFILED - 1}"
+              f" under torch.profiler, "
+              f"per frame: {p['syncs']:.1f} synchronizing calls, "
+              f"{p['launches']:.1f} launches, {p['copies']:.1f} copies, "
+              f"device busy {p['busy_ms']:.2f} ms ({share})")
+        nxt[name] += PIPE_PROFILED
+        expect(launches[name] == PIPE_STEADY + PIPE_PROFILED,
+               f"pipeline {name}: {launches[name]} launches")
+        expect(all(p7 is not None for _, p7 in s.trajectory[n:]),
+               f"pipeline {name}: a frame after {n} was lost")
+    after = timed_block("pipelined")
+    print(f"[pipeline] pipelined loop after the profiler, frames "
+          f"{n_all - half}-{n_all - 1}: {half / after:.2f} frames/s")
+    return r["launches"] + rb["launches"]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1873,7 +2072,8 @@ def main() -> int:
         + phase(run_loc, orbit, rgbd_state) + phase(run_deform)
         + phase(run_disk, *orbit))
     n_par, par_record = phase(run_parallel, orbit, rgbd_state)
-    record["launches"] += n_par + phase(run_proxy)
+    record["launches"] += n_par + phase(run_proxy) + phase(run_pipeline,
+                                                           orbit)
     record.update(par_record)
     # one launch per extraction: 30 + 20 + 2 x 10 + 25 on the orbit, 96
     # around the ring, 6 + 12 + 30 in localization-only mode, 20 + 20 on
@@ -1881,12 +2081,13 @@ def main() -> int:
     # through the examples from disk; in the parallel phase one per step
     # for all 8 lanes (13), 8 bootstrap frames, 13 single-lane frames and
     # one profiled step of each kind; 40 + 40 proxy frames through the
-    # examples
+    # examples; 30 + 25 orbit frames through the pipelined loop
     expect(record["launches"] == 75 + 2 * STEREO_FRAMES + LOOP_FRAMES
            + LOC_ORBIT_FRAMES
            + LOC_MAPPED + LOC_FRAMES + DEFORM_MAPPED + DEFORM_FRAMES
            + DISK_FRAMES + DISK_MONO_FRAMES
-           + PAR_LANES + 2 * (PAR_STEPS + 1) + 2 + 2 * PROXY_FRAMES,
+           + PAR_LANES + 2 * (PAR_STEPS + 1) + 2 + 2 * PROXY_FRAMES
+           + PIPE_FRAMES + PIPE_BLANK_FRAMES,
            f"launch total {record['launches']}")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

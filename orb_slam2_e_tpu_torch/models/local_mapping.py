@@ -499,6 +499,18 @@ def mapping_pass(cam: Camera, cfg: MappingConfig, state: MapState, kf,
     return state, (n_culled, n_new, victims, clipped)
 
 
+def mapping_pass_dyn(cam: Camera, cfg: MappingConfig, state: MapState, kf,
+                     do_ba: torch.Tensor, do_cull_kf: torch.Tensor):
+    """`mapping_pass` with `do_ba` / `do_cull_kf` as 0-d bool tensors (the
+    reference's `lax.cond`s inside its fused frame step). Eager PyTorch
+    cannot skip a launch on a predicate that stays on the device, so their
+    values are read on the host: free for CPU tensors, as the pipelined
+    super-step passes them (part of its one predicate read), one
+    synchronization each for tensors on the card."""
+    return mapping_pass(cam, cfg, state, kf, do_ba=bool(do_ba),
+                        do_cull_kf=bool(do_cull_kf))
+
+
 def cull_keyframes(cfg: MappingConfig, state: MapState, kf):
     """Cull covisible keyframes whose landmarks are >= 90% redundant (seen
     by >= 3 other keyframes at the same or finer scale; reference

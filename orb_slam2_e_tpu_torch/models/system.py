@@ -1,10 +1,9 @@
 """System facade: the public SLAM entry point.
 
 Port of `orb_slam2_e_tpu/models/system.py` (reference System::Track
-{Monocular,Stereo,RGBD}) on the synchronous frame loop: per frame, ORB
-extraction and the frame build (depth lookup, or the stereo matcher, or
-nothing for mono), the tracking step with one host read of its packed
-flags, the keyframe policy, and keyframe insertion followed by one mapping
+{Monocular,Stereo,RGBD}): per frame, ORB extraction and the frame build
+(depth lookup, or the stereo matcher, or nothing for mono), the tracking
+step, the keyframe policy, and keyframe insertion followed by one mapping
 pass. Mono bootstraps from two frames (`tracking.mono_init_*`); stereo and
 RGB-D from one. A LOST frame, on any sensor, is relocalized through BoW
 candidates, PnP RANSAC and the rigid S1/S2/S3 ladder, and the relocalization
@@ -33,12 +32,19 @@ changes the map there. With `deformable=True` an accepted non-rigid
 relocalization still moves the landmarks it tracked and sets their
 `lm_rigid`, as in the reference: that is what the mode is for.
 
-The frame loop is synchronous. `SystemConfig.pipeline` keeps the
-reference's field and default and changes nothing here: the reference's
-pipelined loop reads a frame's flags one frame late, so its keyframe
-decisions come one frame after this loop's; with `pipeline=True` the port
-runs the loop the reference itself runs for `reloc_test_all_frames` and
-localization-only mode.
+The frame loop is the reference's. With `SystemConfig(pipeline=True)`, the
+default, a tracked frame runs the pipelined loop (`_track_pipelined`): the
+super-step tracks the frame against a loop state kept on the device
+(`_LoopState`), makes the keyframe decision there, and inserts the keyframe
+and runs its mapping pass at once, carrying the post-insertion frame
+forward. The host reads one packed predicate per frame, to decide whether
+to queue the insertion; the frame's flags come back through pinned memory
+and are read every other frame (`_drain_pending`), so the host's state
+machine, the recognition database, the loop closer and the KPI counters
+run up to two frames behind, as in the reference. `pipeline=False`,
+`reloc_test_all_frames` and localization-only mode run the synchronous
+loop (`_track_sync`): one packed read per frame and every decision on the
+current frame's flags.
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ import dataclasses
 import enum
 import os
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -117,8 +123,9 @@ class SystemConfig:
     min_init_points: int = 80
     local_ba: bool = True
     mapping: bool = True
-    pipeline: bool = True                # kept for the reference's field;
-                                         # the loop is synchronous either way
+    pipeline: bool = True                # the pipelined frame loop; the
+                                         # KPI protocol and localization-only
+                                         # mode run the synchronous one
     vocab_path: str = None               # None: the bundled vocabulary
 
     @staticmethod
@@ -140,6 +147,39 @@ class SystemConfig:
             n_precision_frames=s.reloc.n_precision_frames,
             stats_reloc_path=s.stats_reloc,
             vocab_path=vocab_path)
+
+
+class _LoopState(NamedTuple):
+    """What the pipelined loop tracks the next frame with, on the system's
+    device, so that the host never reads it before the next dispatch."""
+    map: MapState
+    last_frame: Frame
+    vel7: torch.Tensor            # (7,) motion model
+    vel_ok: torch.Tensor          # () bool
+    ref_kf: torch.Tensor          # () int32 reference keyframe slot
+    last_kf_fid: torch.Tensor     # () int32 frame id of the last keyframe
+    last_reloc_fid: torch.Tensor  # () int32 frame id of the last reloc
+
+
+def keyframe_policy(ok, n_in, ref_matches, nkf, frame_id, last_kf_fid,
+                    last_reloc_fid, mapping_on, *, max_keyframes: int,
+                    max_frames: int, min_frames: int) -> torch.Tensor:
+    """The pipelined loop's keyframe decision on the device, elementwise
+    over broadcastable tensors (reference `_super`, the rules of
+    `SlamSystem._need_new_keyframe` with `nkf` counted on the device and
+    c2 in float32): room in the map, no relocalization in the last
+    `max_frames` frames once the map holds more keyframes than that, c1a
+    (too long since the last keyframe) or c1b (the min gap passed), and c2
+    (tracking weak against the reference keyframe but alive)."""
+    frames_since = frame_id - last_kf_fid
+    room = nkf < max_keyframes - 2
+    recent_block = (frame_id < last_reloc_fid + max_frames) & (
+        nkf > max_frames)
+    c1a = frames_since >= max_frames
+    c1b = frames_since >= min_frames
+    c2 = (n_in.to(torch.float32) < 0.9 * ref_matches.to(torch.float32)) & (
+        n_in > 15)
+    return mapping_on & ok & room & ~recent_block & (c1a | c1b) & c2
 
 
 class SlamSystem:
@@ -216,6 +256,8 @@ class SlamSystem:
         self.last_kf_frame_id = -1
         self.last_reloc_frame_id = -10 ** 9
         self._ref_matches = 0
+        self._loop_state = None     # the pipelined loop's device state
+        self._pending = []          # its frames whose flags are not read
         self._loop_pending = None   # loop-candidate query not yet read
         self._gba = None            # pending chunked global BA
         self._reset_gen = getattr(self, "_reset_gen", 0) + 1
@@ -303,10 +345,23 @@ class SlamSystem:
             ok = self._initialize(frame, timestamp)
             # on success _initialize stored the (compacted) last_frame
             self._record(timestamp, self.last_frame if ok else None)
-            if not ok:
+            if ok:
+                self._seed_loop_state(self.last_frame)
+            else:
                 self.last_frame = frame
             return self._last_pose() if ok else None
+        if self.pipelined:
+            return self._track_pipelined(inputs, timestamp)
         return self._track_sync(inputs, timestamp)
+
+    @property
+    def pipelined(self) -> bool:
+        """Whether a tracked frame runs the pipelined loop: the reference's
+        rule, `pipeline` unless the KPI protocol (which needs the state
+        machine on the current frame) or localization-only mode (which
+        arbitrates VO and relocalization on the host)."""
+        return (self.cfg.pipeline and not self.cfg.reloc_test_all_frames
+                and not self.localization_only)
 
     def _track_step(self, frame: Frame):
         """The tracking step, not yet read by the host. Returns (frame,
@@ -345,21 +400,13 @@ class SlamSystem:
         loc = self.localization_only
         frame, vel_new, flags = self._track_step(
             self._make_frame_inputs(inputs))
-        if self._gba is not None and flags.device.type == "cuda":
-            # one bounded chunk of a pending global BA rides the queue
-            # behind this frame's step: the copy of the flags is queued
-            # first and the host waits for that copy alone, not for the
-            # chunk queued after it
-            host = torch.empty(flags.shape, dtype=flags.dtype,
-                               pin_memory=True)
-            host.copy_(flags, non_blocking=True)
-            copied = torch.cuda.Event()
-            copied.record()
-            self._advance_gba()
+        # one bounded chunk of a pending global BA rides the queue behind
+        # this frame's step: the copy of the flags is queued first and the
+        # host waits for that copy alone, not for the chunk queued after it
+        flags, copied = self._to_host(flags)
+        self._advance_gba()
+        if copied is not None:
             copied.synchronize()
-            flags = host
-        else:
-            self._advance_gba()
         flags = flags.tolist()            # the frame's one host read
         ok, n_in, self._ref_matches, clipped = (bool(flags[0]), flags[1],
                                                 flags[2], flags[3])
@@ -411,6 +458,208 @@ class SlamSystem:
         self._record(timestamp, frame)
         self.last_frame = frame
         return self._last_pose()
+
+    # ------------------------------------------------- pipelined frame loop
+    def _seed_loop_state(self, frame: Frame):
+        def i32(v):
+            return torch.tensor(v, dtype=torch.int32, device=self.device)
+        self._loop_state = _LoopState(
+            map=self.map, last_frame=frame,
+            vel7=lie.pose7_identity(device=self.device),
+            vel_ok=torch.tensor(False, device=self.device),
+            ref_kf=i32(max(self.last_kf_slot, 0)),
+            last_kf_fid=i32(self.last_kf_frame_id),
+            last_reloc_fid=i32(max(self.last_reloc_frame_id, -10 ** 9)))
+        self._pending = []
+
+    def _sstep(self, loop: _LoopState, inputs: tuple, frame_id: int,
+               timestamp: float, mapping_on: bool):
+        """The super-step of one frame (the reference's `_sstep_mono`,
+        `_sstep_depth` and `_sstep_stereo`, whose sensor front ends are
+        `_make_frame_inputs`)."""
+        return self._super(loop, self._make_frame_inputs(inputs), frame_id,
+                           timestamp, mapping_on)
+
+    def _super(self, loop: _LoopState, frame: Frame, frame_id: int,
+               timestamp: float, mapping_on: bool):
+        """Tracking, the keyframe decision on the device, and insertion with
+        a mapping pass when it says so. The host reads ONE packed predicate
+        [need_kf, slot, do_ba, do_cull_kf] to decide whether to queue the
+        insertion (the reference's `lax.cond`; `need_kf` with no free slot
+        skips, as the reference's select leaves the map and frame as they
+        were). Returns (loop state', flags, pose): flags = [ok, n_in,
+        ref_matches, clip_track, slot, n_culled, n_new, victim0, victim1,
+        clip_map, inserted] int32, not read; pose a fresh tensor for the
+        trajectory."""
+        cfg = self.cfg
+        ref_kf = loop.ref_kf.clamp(min=0)
+        m1, f_out, vel_new, flags4 = T.track_frame_fused(
+            self.cam, self.track_cfg, loop.map, frame, loop.last_frame,
+            loop.vel7, loop.vel_ok, ref_kf)
+        ok = flags4[0] > 0
+        nkf = m1.kf_valid.sum().to(torch.int32)
+        need_kf = keyframe_policy(
+            ok, flags4[1], flags4[2], nkf, frame_id, loop.last_kf_fid,
+            loop.last_reloc_fid, mapping_on,
+            max_keyframes=cfg.max_keyframes,
+            max_frames=cfg.max_frames_between_kf,
+            min_frames=cfg.min_frames_between_kf)
+        slot = m1.free_kf_slot()
+        do_ba = (nkf + 1 > 2) & cfg.local_ba
+        do_cull_kf = nkf + 1 > 4
+        pred = torch.stack([need_kf.to(torch.int32), slot,
+                            do_ba.to(torch.int32),
+                            do_cull_kf.to(torch.int32)]).cpu()
+        if bool(pred[0]) and int(pred[1]) >= 0:
+            m2, f2, packed = self._super_insert(
+                m1, f_out, frame_id, timestamp, ref_kf, int(pred[1]),
+                pred[2].bool(), pred[3].bool())
+        else:
+            m2, f2 = m1, f_out
+            packed = torch.tensor([INVALID, 0, 0, INVALID, INVALID, 0],
+                                  dtype=torch.int32, device=self.device)
+        inserted = need_kf & (slot >= 0)
+        loop2 = _LoopState(
+            map=m2, last_frame=f2, vel7=vel_new, vel_ok=ok,
+            ref_kf=torch.where(inserted, slot, loop.ref_kf),
+            last_kf_fid=torch.where(inserted, frame_id, loop.last_kf_fid),
+            last_reloc_fid=loop.last_reloc_fid)
+        flags = torch.cat([flags4.to(torch.int32), packed,
+                           inserted.to(torch.int32)[None]])
+        return loop2, flags, f2.pose7.clone()
+
+    def _super_insert(self, state: MapState, frame: Frame, frame_id: int,
+                      timestamp: float, parent, slot: int, do_ba, do_cull_kf):
+        """The super-step's insertion: the keyframe into `slot` under
+        `parent`, then one mapping pass (`do_ba` / `do_cull_kf` 0-d bool
+        tensors on the host). Returns (map, post-insertion frame, [slot,
+        n_culled, n_new, victim0, victim1, clip_map] int32)."""
+        st1, fr1 = T.insert_keyframe(self.cam, self.track_cfg, state, frame,
+                                     frame_id, timestamp, parent, slot)
+        st2, (n_culled, n_new, victims, clipped) = LM.mapping_pass_dyn(
+            self.cam, self.map_cfg, st1, slot, do_ba, do_cull_kf)
+        packed = torch.stack([torch.as_tensor(v, device=self.device).to(
+            torch.int32) for v in (slot, n_culled, n_new, *victims,
+                                   clipped)])
+        return st2, fr1, packed
+
+    def _track_pipelined(self, inputs: tuple, timestamp: float):
+        """Queue the frame's super-step, then read earlier frames' flags:
+        every other frame, the two pending ones (`_drain_pending`), so the
+        host's decisions run up to two frames behind. The step gates
+        itself (a failed frame inserts nothing); frames queued after a
+        failure track against the reference keyframe. A LOST system drains
+        and, still LOST, relocalizes this frame on the host."""
+        if self.state == TrackState.LOST:
+            self._drain_pending()
+            if self.state == TrackState.LOST:
+                frame, ok = self._relocalize(self._make_frame_inputs(inputs))
+                if ok:
+                    # as the reference: no KPI call for this frame
+                    self.state = TrackState.OK
+                    self.last_frame = frame
+                    if self._loop_state is None:
+                        self._seed_loop_state(frame)
+                    self._loop_state = self._loop_state._replace(
+                        map=self.map, last_frame=frame,
+                        vel_ok=torch.tensor(False, device=self.device),
+                        last_reloc_fid=torch.tensor(
+                            self.frame_id, dtype=torch.int32,
+                            device=self.device))
+                    self._record(timestamp, frame)
+                    return self._last_pose()
+                self.kpi.on_frame_lost(self.frame_id)
+                if self.n_keyframes <= 5 and not self.localization_only:
+                    self.reset()
+                self._record(timestamp, None)
+                return None
+        if self._loop_state is None:
+            self._seed_loop_state(self.last_frame)
+        self._loop_state, flags, pose = self._sstep(
+            self._loop_state, inputs, self.frame_id, timestamp,
+            not self.localization_only)
+        self.map = self._loop_state.map
+        self.last_frame = self._loop_state.last_frame
+        # the flags' copy is queued before a global-BA chunk, so that
+        # reading them never waits for the chunk
+        flags = self._to_host(flags)
+        self._advance_gba()
+        if len(self._pending) >= 2:
+            self._drain_pending()
+        if self._loop_state is None:
+            # a reset in the drain: this frame's step is void
+            self._record(timestamp, None)
+            return None
+        self.trajectory.append((timestamp, pose))
+        self._pending.append((self.frame_id, flags,
+                              len(self.trajectory) - 1))
+        return self._last_pose()
+
+    def _to_host(self, t: torch.Tensor):
+        """(tensor, event): a CUDA tensor copied to pinned host memory
+        behind the queued work, with the event that marks the copy done;
+        a CPU tensor as it is, with None."""
+        if t.device.type != "cuda":
+            return t, None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def _drain_pending(self):
+        """Read and act on the flags of every pending frame, oldest first.
+        A reset on the way (lost right after initialization) voids the
+        rest."""
+        while self._pending:
+            gen = self._reset_gen
+            items, self._pending = self._pending, []
+            for fid, (host, done), tidx in items:
+                if done is not None:
+                    done.synchronize()
+                self._process_flags(fid, host.tolist(), tidx)
+                if self._reset_gen != gen:
+                    return
+
+    def _process_flags(self, fid: int, flags: list, tidx: int):
+        """The host's bookkeeping of one frame of the pipelined loop,
+        arriving up to two frames late: state, KPI, the counters of an
+        inserted keyframe, recognition database upkeep and loop closing.
+        A not-ok frame's trajectory entry is revoked."""
+        self._count_clip(flags[3] << 4)   # local-map search hit its capacity
+        if not flags[0]:
+            self.trajectory[tidx] = (self.trajectory[tidx][0], None)
+            was_ok = self.state == TrackState.OK
+            self.state = TrackState.LOST
+            self.kpi.on_frame_lost(fid)
+            if was_ok and self.n_keyframes <= 5 \
+                    and not self.localization_only:
+                self.reset()
+            return
+        self.kpi.on_frame_tracked(fid)
+        self.state = TrackState.OK
+        slot, n_culled, n_new, victim0, victim1, clip_map = flags[4:10]
+        if not (flags[10] and slot >= 0):
+            return
+        self.last_kf_slot = slot
+        self.last_kf_frame_id = fid
+        self.n_keyframes += 1
+        self.stats["kf_inserted"] += 1
+        self.stats["points_created"] += n_new
+        self.stats["points_culled"] += n_culled
+        self._count_clip(clip_map)
+        for victim in (victim0, victim1):
+            if victim >= 0:
+                if self.bow_db is not None:
+                    self.bow_db = self.bow_db.erase(victim)
+                self.n_keyframes -= 1
+                self.stats["kf_culled"] += 1
+        self._ensure_vocab()
+        self._db_add(slot)
+        if self.cfg.loop_closing:
+            self._try_close_loop(slot)
+            if self._loop_state is not None:
+                self._loop_state = self._loop_state._replace(map=self.map)
 
     def _initialize(self, frame: Frame, timestamp: float) -> bool:
         if self.sensor in (Sensor.RGBD, Sensor.STEREO):
@@ -845,13 +1094,17 @@ class SlamSystem:
         pose7, pts, _ = g["carry"]
         self.map = LC.gba_merge(self.map, pose7, pts, g["kf_seq"],
                                 g["lm_first_seq"], g["lm_valid"])
+        if self._loop_state is not None:
+            self._loop_state = self._loop_state._replace(map=self.map)
         self._gba = None
         self.stats["gba_completed"] = self.stats.get("gba_completed", 0) + 1
 
     def shutdown(self):
-        """Reference System::Shutdown: the last keyframe's loop query is
-        read and a pending chunked global BA is run to its end (the
-        reference joins its GBA thread, System.cc:319-334)."""
+        """Reference System::Shutdown: the pipelined loop's pending flags
+        are read, the last keyframe's loop query is read and a pending
+        chunked global BA is run to its end (the reference joins its GBA
+        thread, System.cc:319-334)."""
+        self._drain_pending()
         self._loop_harvest()
         while self._gba is not None:
             self._advance_gba()
@@ -870,7 +1123,9 @@ class SlamSystem:
         return lie.pose7_unpack(p7)
 
     def get_trajectory(self):
-        """-> (timestamps, R_wc (N,3,3), t_wc (N,3)) numpy, tracked frames."""
+        """-> (timestamps, R_wc (N,3,3), t_wc (N,3)) numpy, tracked frames.
+        The pipelined loop's pending verdicts are settled first."""
+        self._drain_pending()
         ts = [tstamp for tstamp, p7 in self.trajectory if p7 is not None]
         p7s = [p7 for _, p7 in self.trajectory if p7 is not None]
         if not p7s:

@@ -2,7 +2,7 @@
 (twin of tools/profile_step.py).
 
     python3 -m orb_slam2_e_tpu_torch.tools.profile_step [--sensor mono|rgbd]
-        [--device cuda] [--small]
+        [--device cuda] [--small] [--pipeline]
 
 Run it alone on the card. It builds a map from 20 frames of the benchmark
 orbit (640x480, 8 levels, 1000 features, `bench.py`'s capacities), then
@@ -23,6 +23,11 @@ the host several times over (about 6 s a frame where 0.7 s is the rate), so
 the share is taken against the wall time of the frames just before, run
 without it; reading the trace takes a few minutes more. On the CPU there
 is no device activity: the counts print as 0 and the tool says so.
+
+The system runs the synchronous frame loop (`pipeline=False`), or with
+`--pipeline` the pipelined one that `SystemConfig()` and the examples run:
+the map and the profiled frames then go through its super-step, and its
+host reads the frames' flags every other frame.
 
 The first line is the card's name and power limit as `nvidia-smi` gives
 them.
@@ -157,6 +162,9 @@ def main(argv=None):
                     help="320x240, 3 levels, 300 features, 8 frames, one "
                          "timed call per stage, 2 profiled frames: a quick "
                          "run of every line, for the CPU")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="the pipelined frame loop (SystemConfig()'s "
+                         "default) instead of the synchronous one")
     args = ap.parse_args(argv)
     size = SMALL if args.small else FULL
     dev = torch.device(args.device)
@@ -180,7 +188,7 @@ def main(argv=None):
                        max_points=size["max_points"],
                        n_features=size["features"], n_levels=size["levels"],
                        max_frames_between_kf=6, min_init_matches=80,
-                       loop_closing=False)
+                       loop_closing=False, pipeline=args.pipeline)
     rgbd = args.sensor == "rgbd"
     sysm = SlamSystem(cam, cfg, Sensor.RGBD if rgbd else Sensor.MONOCULAR,
                       device=dev, seed=args.seed)
@@ -211,7 +219,8 @@ def main(argv=None):
     plain_ms = statistics.median(frame_ms[-n_prof:])
     img = torch.as_tensor(images[n_frames - 1], device=dev)
     print(f"sensor: {args.sensor}  {W}x{H}  {size['features']} features  "
-          f"{size['levels']} levels")
+          f"{size['levels']} levels  "
+          f"{'pipelined' if args.pipeline else 'synchronous'} loop")
     print(f"map: {int(sysm.map.n_keyframes())} KFs "
           f"{int(sysm.map.n_points())} pts")
 

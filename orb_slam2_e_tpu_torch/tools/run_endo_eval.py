@@ -9,14 +9,16 @@ phases run the port's `examples.mono_deformable` through `main(argv)`, in
 a working directory of their own under the output directory.
 
 Writes `ENDO_KPI.json` (the reference's keys, plus the device, the
-textures, the seconds and what the map phase left: frames tracked,
-keyframes and landmarks kept, keyframes inserted and culled) and
+textures, the seconds, the frame loop of each phase (`map_loop`: the
+pipelined one, as the examples run it; `reloc_loop`: the synchronous one of
+the KPI protocol) and what the map phase left: frames tracked, keyframes
+and landmarks kept, keyframes inserted and culled) and
 `StatsReloc_endo.txt` to the output directory; the map goes beside the
 map-phase sequence.
 
 Usage:
     python3 -m orb_slam2_e_tpu_torch.tools.run_endo_eval [--frames 240]
-        [--amp 0.12] [--device cuda] [--data-dir data]
+        [--amp 0.12] [--device cuda] [--seed 0] [--data-dir data]
         [--out-dir eval/torch]
 """
 
@@ -32,7 +34,8 @@ from pathlib import Path
 
 from . import make_proxy_endo
 from .proxy_render import TEXTURES
-from .run_proxy_eval import ROOT, device_line, ensure_sequence, working_dir
+from .run_proxy_eval import (ROOT, device_line, ensure_sequence, loop_name,
+                             working_dir)
 
 KPI_LINE = re.compile(r"reloc KPI: TP=(\d+) FP=(\d+) FN=(\d+) "
                       r"precision=([\d.]+) recall=([\d.]+)")
@@ -58,7 +61,7 @@ def map_summary(sysm) -> dict:
         map_keyframes=sysm.n_keyframes,
         map_landmarks=int(sysm.map.lm_valid.sum()),
         map_kf_inserted=sysm.stats["kf_inserted"],
-        map_kf_culled=sysm.stats["kf_culled"])
+        map_kf_culled=sysm.stats["kf_culled"], map_loop=loop_name(sysm))
 
 
 def main(argv=None):
@@ -68,6 +71,8 @@ def main(argv=None):
     ap.add_argument("--amp", type=float, default=0.12)
     ap.add_argument("--device", default="cuda",
                     help="torch device of the renderer and the systems")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of both phases' RANSAC draws")
     ap.add_argument("--data-dir", default=str(ROOT / "data"))
     ap.add_argument("--out-dir", default=str(ROOT / "eval" / "torch"))
     args = ap.parse_args(argv)
@@ -84,7 +89,7 @@ def main(argv=None):
 
     evald = Path(args.out_dir).resolve()
     evald.mkdir(parents=True, exist_ok=True)
-    common = ["--device", args.device]
+    common = ["--device", args.device, "--seed", str(args.seed)]
 
     # phase 1: map building, the same settings without the KPI forcing
     settings_map = d_map / "settings_build.yaml"
@@ -101,7 +106,7 @@ def main(argv=None):
     # phase 2: localization-only relocalization KPI on the breathing surface
     stats = evald / "StatsReloc_endo.txt"
     with working_dir(evald):
-        out, s_rel, _ = run_deformable([
+        out, s_rel, loc = run_deformable([
             str(d_rel / "settings.yaml"), str(d_rel), "--load-map",
             str(map_npz), "--stats", str(stats), *common])
     m = KPI_LINE.search(out)
@@ -109,10 +114,11 @@ def main(argv=None):
         raise RuntimeError("KPI line not found in the example's output")
     kpi = dict(tp=int(m[1]), fp=int(m[2]), fn=int(m[3]),
                precision=float(m[4]), recall=float(m[5]), amp=args.amp,
-               frames=args.frames, device=device_line(args.device),
+               frames=args.frames, seed=args.seed,
+               device=device_line(args.device),
                textures=list(TEXTURES), package="torch",
                seconds_map=round(s_map, 1), seconds_reloc=round(s_rel, 1),
-               **built)
+               reloc_loop=loop_name(loc), **built)
     (evald / "ENDO_KPI.json").write_text(json.dumps(kpi, indent=2) + "\n")
     print(json.dumps(kpi))
 

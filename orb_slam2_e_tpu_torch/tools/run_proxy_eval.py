@@ -106,17 +106,22 @@ def working_dir(parent: Path):
             os.chdir(cwd)
 
 
+def loop_name(sysm) -> str:
+    """The frame loop a system's tracked frames ran."""
+    return "pipelined" if sysm.pipelined else "synchronous"
+
+
 def run_example(example, argv):
-    """`example.main(argv)`; returns (seconds, frames) and frees the
-    system's memory."""
+    """`example.main(argv)`; returns (seconds, frames, frame loop) and
+    frees the system's memory."""
     t0 = time.perf_counter()
     sysm = example.main(argv)
     seconds = time.perf_counter() - t0
-    frames = sysm.frame_id + 1
+    frames, loop = sysm.frame_id + 1, loop_name(sysm)
     del sysm
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
-    return seconds, frames
+    return seconds, frames, loop
 
 
 def run_mono(d: Path, gt: Path, evald: Path, seq: str, args, common):
@@ -124,7 +129,7 @@ def run_mono(d: Path, gt: Path, evald: Path, seq: str, args, common):
     kf_out = evald / f"KeyFrameTrajectory_mono_{seq}.txt"
     fr_out = evald / f"FrameTrajectory_mono_{seq}.txt"
     with working_dir(evald):
-        seconds, n = run_example(mono_tum, [
+        seconds, n, loop = run_example(mono_tum, [
             str(d / "settings.yaml"), str(d), str(kf_out), *common])
         Path("FrameTrajectory.txt").replace(fr_out)
     ate_kf, n_kf, _ = ate_vs_gt(kf_out, gt, with_scale=True)
@@ -134,7 +139,7 @@ def run_mono(d: Path, gt: Path, evald: Path, seq: str, args, common):
     res = dict(ate_rmse_frames_m=_round(ate_fr), frames_tracked=n_fr,
                ate_rmse_keyframes_m=_round(ate_kf), n_keyframes=n_kf,
                total_frames=args.frames, alignment="Sim3",
-               initialized_at_frame=init)
+               initialized_at_frame=init, loop=loop)
     fails = []
     if init is None or init > MONO_INIT_BY:
         fails.append(f"mono_{seq}: initialized at frame {init}, not by "
@@ -152,14 +157,15 @@ def run_rgbd(d: Path, gt: Path, evald: Path, seq: str, args, common):
     rd_out = evald / f"CameraTrajectory_rgbd_{seq}.txt"
     rdk_out = evald / f"KeyFrameTrajectory_rgbd_{seq}.txt"
     with working_dir(evald):
-        seconds, n = run_example(rgbd_tum, [
+        seconds, n, loop = run_example(rgbd_tum, [
             str(d / "settings.yaml"), str(d), str(d / "associations.txt"),
             *common])
         Path("CameraTrajectory.txt").replace(rd_out)
         Path("KeyFrameTrajectory.txt").replace(rdk_out)
     ate_rd, n_rd, _ = ate_vs_gt(rd_out, gt, with_scale=False)
     res = dict(ate_rmse_frames_m=_round(ate_rd), frames_tracked=n_rd,
-               total_frames=args.frames, alignment="SE3 (no scale)")
+               total_frames=args.frames, alignment="SE3 (no scale)",
+               loop=loop)
     fails = []
     if n_rd < args.frames - 1:
         fails.append(f"rgbd_{seq}: {n_rd} of {args.frames} frames tracked")

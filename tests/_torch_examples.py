@@ -36,8 +36,8 @@ DEPTH_FACTOR = 5000.0
 N = 8
 # port against reference, camera centres frame by frame: the bounds of
 # tests/test_torch_e2e_rgbd.py (the reference's local BA is chaotic at the
-# 1-ulp level, ROADMAP Q3 #11; its pipelined loop also inserts keyframes one
-# frame later than the port's synchronous one)
+# 1-ulp level, ROADMAP Q3 #11). Both packages' examples run the pipelined
+# frame loop, the default of SystemConfig.from_settings.
 CENTER_MEDIAN_ATOL = 0.02
 CENTER_MAX_ATOL = 0.05
 MONO_SEED = "3"

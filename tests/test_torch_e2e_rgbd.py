@@ -244,8 +244,8 @@ def test_import_and_one_frame_leave_jax_out(tmp_path):
 # NotImplementedError naming its ROADMAP item and is ported now: its case
 # checks that what was refused constructs, switches, or writes and reads a
 # map. The last to move were the three `pipeline=True` kinds (the
-# reference's default): the port accepts the flag and runs its synchronous
-# loop.
+# reference's default): the port accepts the flag and runs the reference's
+# pipelined loop (tests/test_torch_pipeline.py).
 _REFUSALS = {}
 
 

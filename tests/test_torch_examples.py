@@ -136,7 +136,8 @@ def test_rgbd_tum_example(tmp_path, tum_rgbd_seq, monkeypatch):
     _hold_trajectories(got, want)
     n_kf = [len((d / "KeyFrameTrajectory.txt").read_text().splitlines())
             for d in (port, ref)]
-    assert n_kf[0] >= 2 and abs(n_kf[0] - n_kf[1]) <= 2, n_kf
+    # both examples run the pipelined loop: the same keyframes kept
+    assert n_kf[0] >= 2 and n_kf[0] == n_kf[1], n_kf
 
 
 def test_no_card_means_torchs_own_error(tmp_path, tum_rgbd_seq,

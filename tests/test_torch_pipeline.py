@@ -1,0 +1,575 @@
+"""The port's pipelined frame loop (`SystemConfig(pipeline=True)`, the
+default) against the reference's, on the CPU: `mapping_pass_dyn`, the
+keyframe policy on the device, the dispatch rule between the two loops, and
+RGB-D sequences (whole, with blank frames that end in a relocalization,
+and with a loss right after initialization) through both packages'
+pipelined loops. The monocular
+sequence is in tests/test_torch_pipeline_mono.py.
+
+The RGB-D sequences hold the loop itself, so the port tracks the frames the
+reference's extractor built (carried across with `utils/convert.py`): the
+two extractors round the keypoint orientation apart, which flips
+descriptor bits and moves the map's counts by tens of points in either
+package (a 1-ulp change of the depth maps moves the port's
+`points_created` over 702-754 on its own features). On equal frames the
+reference's own 1-ulp spread is what the counts are held to.
+
+One reference system is compiled and reset between the three sequences:
+the reference compiles its super-step once per `SlamSystem` (~30 s).
+
+Run as a script, the file prints the measurements behind its constants and
+behind chip_smoke.py's `PIPE_REF` (see `main`)."""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from _torch_port import jnp_dict, tnp, ulp_moved
+import test_torch_ba_mapping as BAM
+import test_torch_e2e_rgbd as E2E
+from orb_slam2_e_tpu.models import local_mapping as JLM
+from orb_slam2_e_tpu.models import tracking as JT
+from orb_slam2_e_tpu.models.system import (SlamSystem as JSys,
+                                           SystemConfig as JCfg,
+                                           Sensor as JSensor)
+from orb_slam2_e_tpu.ops import camera as jcam
+from orb_slam2_e_tpu_torch.models import local_mapping as TLM
+from orb_slam2_e_tpu_torch.models import system as S
+from orb_slam2_e_tpu_torch.models.system import (SlamSystem, SystemConfig,
+                                                 Sensor, TrackState)
+from orb_slam2_e_tpu_torch.ops import lie
+from orb_slam2_e_tpu_torch.ops.camera import Camera
+from orb_slam2_e_tpu_torch.utils import convert
+from orb_slam2_e_tpu_torch.utils.synthetic import (SyntheticScene,
+                                                   orbit_trajectory)
+
+pytestmark = pytest.mark.e2e
+
+# tests/test_torch_e2e_rgbd.py's scene and configuration, pipelined
+CFG = dict(E2E.CFG, pipeline=True)
+N_FRAMES = 12
+# frame 6 black: lost, and the next frame recovers in the step; frames 9
+# and 10 black: the host is LOST when frame 11 arrives and relocalizes it
+BLANKS = (6, 9, 10)
+# frame 2 black: read at frame 3 with 2 keyframes in the map, a loss right
+# after initialization, which resets the system
+EARLY_BLANK = (2,)
+# The reference's own spread: its depth maps moved by 1 ulp
+# (tests/_torch_port.py::ulp_moved, seeds 1-4) give points_created 679 /
+# 685 / 680 / 673 and points_culled 748 / 746 / 750 / 747 on the whole
+# sequence, against 676 / 742 unmoved, and 536 / 540 / 529 / 526 and 441 /
+# 446 / 439 / 441 on the blanked one, against 540 / 443: they move by up
+# to 14. The port on the reference's frames: 676 / 740 and 529 / 444.
+# (`python tests/test_torch_pipeline.py spread` prints them.)
+POINTS_ATOL = 14
+# on the same 1-ulp moved inputs the port and the reference cull one
+# keyframe apart once (`spread`: seed 4, 2 against 1), as the local BA's
+# chaos moves the redundancy ratio: keyframes kept and culled are held to
+# test_torch_e2e_rgbd.py's KF_COUNT_SLACK, everything else exactly
+KF_SLACK = E2E.KF_COUNT_SLACK
+EXACT_STATS = ("kf_inserted", "relocs", "loops_closed", "capacity_clips",
+               "clip_bits")
+
+
+# ---------------------------------------------------------------------------
+# mapping_pass_dyn and the keyframe policy
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def rgbd_ref():
+    """One reference RGB-D system, pipelined; `run_rgbd` resets it."""
+    return JSys(jcam.Camera.create(**E2E.CAM), JCfg(**CFG), JSensor.RGBD)
+
+
+def _frames(blanks=(), ulp_seed=0):
+    """The orbit's frames, `blanks` black; with `ulp_seed` the depth maps
+    moved by 1 ulp (`ulp_moved`, that seed)."""
+    scene = SyntheticScene(**E2E.SCENE)
+    poses, centers = orbit_trajectory(n_frames=N_FRAMES, radius=0.9,
+                                      forward=0.04)
+    frames = [(scene.render(R, t), scene.depth_map(R, t)) for R, t in poses]
+    if ulp_seed:
+        rng = np.random.RandomState(ulp_seed)
+        frames = [(img, ulp_moved(d, rng)) for img, d in frames]
+    for k in blanks:
+        frames[k] = (np.zeros_like(frames[k][0]), frames[k][1])
+    return frames, centers
+
+
+def _centre(pose):
+    if pose is None:
+        return None
+    R, t = (np.asarray(x, np.float64) for x in pose)
+    return -R.T @ t
+
+
+def _run(systems, feed, n):
+    """Feed frames 0..n-1 to every system in `systems` ({name: system}).
+    Records after every call: the returned pose (copied), state, stats,
+    keyframe count and pending frames; and, through `_process_flags`, the
+    frames whose keyframe the host counted. Ends with `get_trajectory()`."""
+    rec = {}
+    for name, s in systems.items():
+        r = rec[name] = {"poses": [], "recorded": [], "state": [],
+                         "stats": [], "n_kf": [], "pending": [],
+                         "inserted": []}
+        orig = type(s)._process_flags.__get__(s)   # not an earlier run's
+
+        def process(fid, flags, tidx, orig=orig, r=r):
+            if bool(flags[10]) and int(flags[4]) >= 0:
+                r["inserted"].append(fid)
+            return orig(fid, flags, tidx)
+        s._process_flags = process
+    for k in range(n):
+        for name, s in systems.items():
+            r = rec[name]
+            pose = feed(s, k)
+            r["poses"].append(None if pose is None else
+                              tuple(np.array(x) for x in pose))
+            p7 = s.trajectory[-1][1]
+            r["recorded"].append(None if p7 is None else np.array(p7))
+            r["state"].append(s.state.name)
+            r["stats"].append(dict(s.stats))
+            r["n_kf"].append(s.n_keyframes)
+            r["pending"].append(len(s._pending))
+    for name, s in systems.items():
+        rec[name]["traj"] = s.get_trajectory()
+        rec[name]["entries"] = [None if p7 is None else np.array(p7)
+                                for _, p7 in s.trajectory]
+        rec[name]["final"] = (dict(s.stats), s.n_keyframes, s.state.name,
+                              (s.kpi.tp, s.kpi.fp, s.kpi.fn))
+    return rec
+
+
+def run_rgbd(sj, blanks=(), ulp_seed=0, own_frames=False):
+    """The 12-frame orbit (with `blanks` black, see `_frames`) through the
+    reference `sj` (reset first) and a port system tracking the frames the
+    reference's extractor built (its own with `own_frames`)."""
+    frames, centers = _frames(blanks, ulp_seed)
+    sj.reset()
+    st = SlamSystem(Camera.create(**E2E.CAM), SystemConfig(**CFG),
+                    Sensor.RGBD, device="cpu")
+
+    def ref_frame(inputs):
+        img, depth = (np.asarray(x) for x in inputs)
+        return convert.frame_from_numpy(jnp_dict(sj._mk_frame_depth(
+            jnp.asarray(img), jnp.asarray(depth))), "cpu")
+    if not own_frames:
+        st._make_frame_inputs = ref_frame
+
+    def feed(s, k):
+        return s.track_rgbd(*frames[k], k / 30.0)
+    return _run({"jax": sj, "torch": st}, feed, N_FRAMES), centers, st
+
+
+@pytest.fixture(scope="module")
+def rgbd(rgbd_ref):
+    rec, centers, st = run_rgbd(rgbd_ref)
+    # the map for mapping_pass_dyn: the reference's end state with one
+    # more keyframe inserted, not yet mapped
+    sj = rgbd_ref
+    state, _, slot = JT.insert_keyframe(
+        sj.cam, sj.track_cfg, sj.map, sj.last_frame, jnp.int32(N_FRAMES),
+        jnp.float32(N_FRAMES / 30.0), jnp.int32(sj.last_kf_slot))
+    return rec, centers, (sj.cam, sj.map_cfg, state, int(slot))
+
+
+@pytest.mark.parametrize("do_ba", [False, True])
+@pytest.mark.parametrize("do_cull_kf", [False, True])
+def test_mapping_pass_dyn_matches_reference(rgbd, do_ba, do_cull_kf):
+    """The reference's `mapping_pass_dyn` (its `lax.cond`s traced, as in
+    its super-step) and the port's on the same map, at the tolerances of
+    test_torch_ba_mapping.py::test_mapping_pass_matches."""
+    _, _, (cam, mcfg, state, slot) = rgbd
+    fn = jax.jit(JLM.mapping_pass_dyn, static_argnums=(1,))
+    js, (jcul, jnew, jvic, jclip) = fn(cam, mcfg, state, jnp.int32(slot),
+                                       jnp.bool_(do_ba), jnp.bool_(do_cull_kf))
+    ts, (tcul, tnew, tvic, tclip) = TLM.mapping_pass_dyn(
+        convert.camera_from_numpy(jnp_dict(cam), "cpu"),
+        TLM.MappingConfig(*mcfg), BAM._port_map(state), slot,
+        torch.tensor(do_ba), torch.tensor(do_cull_kf))
+    j, t = jnp_dict(js), convert.to_numpy(ts)
+    assert int(tnew) == int(jnew) and int(tcul) == int(jcul)
+    np.testing.assert_array_equal(tnp(tvic), np.asarray(jvic))
+    assert int(tclip) == int(jclip)
+    for k in ("kf_valid", "lm_valid", "kf_kp_point"):
+        np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+    v, kv = j["lm_valid"], j["kf_valid"]
+    dxyz = np.abs(t["lm_xyz"][v] - j["lm_xyz"][v])
+    assert np.median(dxyz) <= BAM.MAP_XYZ_MEDIAN_ATOL, np.median(dxyz)
+    assert dxyz.max() <= BAM.MAP_XYZ_MAX_ATOL, dxyz.max()
+    np.testing.assert_allclose(t["kf_pose7"][kv], j["kf_pose7"][kv],
+                               atol=BAM.MAP_POSE_ATOL)
+    moved = np.abs(j["kf_pose7"][kv] - np.asarray(state.kf_pose7)[kv]).max()
+    assert (moved > 0) == do_ba
+    assert (np.asarray(jvic) >= 0).any() <= do_cull_kf
+
+
+def _policy_np(ok, n_in, refm, nkf, frame_id, last_kf_fid, last_reloc_fid,
+               mapping_on, K, MAXF, MINF):
+    """The reference's `_super` keyframe policy (system.py:286-298)."""
+    nkf = nkf.astype(np.int32)
+    frames_since = frame_id - last_kf_fid
+    room = nkf < K - 2
+    recent_block = (frame_id < last_reloc_fid + MAXF) & (nkf > MAXF)
+    c1a = frames_since >= MAXF
+    c1b = frames_since >= MINF
+    c2 = (n_in.astype(np.float32) < np.float32(0.9) * refm.astype(
+        np.float32)) & (n_in > 15)
+    return mapping_on & ok & room & ~recent_block & (c1a | c1b) & c2
+
+
+@pytest.mark.parametrize("limits", [(32, 4, 0), (256, 30, 3)])
+def test_keyframe_policy_matches_reference(limits):
+    K, MAXF, MINF = limits
+    grid = np.array(np.meshgrid(
+        [0, 1],                                   # ok
+        [0, 15, 16, 17, 89, 90, 91, 100, 450],    # n_in
+        [0, 10, 17, 18, 100, 101, 500],           # ref_matches
+        [0, 1, MAXF - 1, MAXF, MAXF + 1, K - 3, K - 2],   # nkf
+        [0, 5, 40, 1000],                         # frame_id
+        [-1, 0, 4, 37],                           # last_kf_fid
+        [-10 ** 9, 0, 3, 35],                     # last_reloc_fid
+        [0, 1],                                   # mapping_on
+        indexing="ij"), np.int32).reshape(8, -1)
+    want = _policy_np(*(grid[i] for i in range(8)), K, MAXF, MINF) != 0
+    t = [torch.from_numpy(g) for g in grid]
+    got = S.keyframe_policy(
+        t[0] > 0, t[1], t[2], t[3], t[4], t[5], t[6], t[7] > 0,
+        max_keyframes=K, max_frames=MAXF, min_frames=MINF)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < want.sum() < want.size
+
+
+# ---------------------------------------------------------------------------
+# Which loop runs
+# ---------------------------------------------------------------------------
+
+ROUTES = {
+    "default": ({}, False, "_track_pipelined"),
+    "pipeline=False": ({"pipeline": False}, False, "_track_sync"),
+    "reloc_test_all_frames": ({"reloc_test_all_frames": True}, False,
+                              "_track_sync"),
+    "localization mode": ({}, True, "_track_sync"),
+    "mapping=False": ({"mapping": False}, False, "_track_sync"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTES))
+def test_dispatch_rule(case):
+    """The reference's rule (system.py:539-542): a tracked frame goes to
+    the pipelined loop unless `pipeline=False`, the KPI protocol or
+    localization-only mode."""
+    extra, loc, want = ROUTES[case]
+    st = SlamSystem(Camera.create(**E2E.CAM),
+                    SystemConfig(max_keyframes=8, max_points=1024, **extra),
+                    Sensor.RGBD, device="cpu")
+    if loc:
+        st.activate_localization_mode()
+    taken = []
+    for name in ("_track_pipelined", "_track_sync"):
+        setattr(st, name, lambda inputs, ts, name=name: taken.append(name))
+    st.state = TrackState.OK
+    img = np.zeros((E2E.CAM["height"], E2E.CAM["width"]), np.uint8)
+    st.track_rgbd(img, img.astype(np.float32), 0.0)
+    assert taken == [want]
+    assert SystemConfig().pipeline and JCfg().pipeline
+
+
+def test_localization_mode_mid_run_skips_the_drain():
+    """A reference quirk, reproduced: `activate_localization_mode()` in
+    the middle of a pipelined run sends the next frame to the synchronous
+    loop without reading the pending flags (system.py:539-542 routes before
+    any drain). The frame is tracked against the loop's last frame; the
+    pending verdicts stay pending until the next pipelined drain."""
+    frames, _ = _frames()
+    st = SlamSystem(Camera.create(**E2E.CAM),
+                    SystemConfig(**dict(CFG, n_features=300, n_levels=2)),
+                    Sensor.RGBD, device="cpu")
+    for k in range(4):
+        assert st.track_rgbd(*frames[k], k / 30.0) is not None
+    pending = [fid for fid, _, _ in st._pending]
+    assert pending == [3] and st.n_keyframes == 3
+    st.activate_localization_mode()
+    assert st.track_rgbd(*frames[4], 4 / 30.0) is not None
+    assert [fid for fid, _, _ in st._pending] == pending
+    assert st.stats["kf_inserted"] == 3
+    st.deactivate_localization_mode()
+    for k in (5, 6):
+        assert st.track_rgbd(*frames[k], k / 30.0) is not None
+    assert [fid for fid, _, _ in st._pending] == [6]
+    assert st.kpi.fn == 0 and st.state == TrackState.OK
+
+
+# ---------------------------------------------------------------------------
+# RGB-D through both pipelined loops
+# ---------------------------------------------------------------------------
+
+def _assert_same_bookkeeping(rec):
+    j, t = rec["jax"], rec["torch"]
+    assert t["state"] == j["state"]
+    assert all(abs(a - b) <= KF_SLACK for a, b in zip(t["n_kf"], j["n_kf"]))
+    assert t["pending"] == j["pending"]
+    assert t["inserted"] == j["inserted"]
+    assert [p is None for p in t["entries"]] == [
+        p is None for p in j["entries"]]
+    for sj, st in zip(j["stats"] + [j["final"][0]],
+                      t["stats"] + [t["final"][0]]):
+        assert {k: st[k] for k in EXACT_STATS} == {
+            k: sj[k] for k in EXACT_STATS}
+        for k in ("points_created", "points_culled"):
+            assert abs(st[k] - sj[k]) <= POINTS_ATOL, (k, st[k], sj[k])
+        assert abs(st["kf_culled"] - sj["kf_culled"]) <= KF_SLACK
+    assert abs(t["final"][1] - j["final"][1]) <= KF_SLACK
+    assert t["final"][2:] == j["final"][2:]
+
+
+def _assert_centres(rec, n_min=N_FRAMES - len(BLANKS)):
+    cj, ct = (np.asarray(rec[n]["traj"][2], np.float64)
+              for n in ("jax", "torch"))
+    assert cj.shape == ct.shape and len(cj) >= n_min
+    d = np.linalg.norm(cj - ct, axis=1)
+    assert np.median(d) < E2E.CENTER_MEDIAN_ATOL, d
+    assert d.max() < E2E.CENTER_MAX_ATOL, d
+
+
+def test_rgbd_pipelined_matches_reference(rgbd):
+    """Host state, keyframe count, pending frames and stats after every
+    call, the frames whose keyframe the host counted, the revoked entries,
+    and the camera centres."""
+    rec, centers, _ = rgbd
+    _assert_same_bookkeeping(rec)
+    _assert_centres(rec)
+    t = rec["torch"]
+    # the drain cadence: two frames pending every other call, read before
+    # the current one is queued; a keyframe behind every tracked frame here
+    assert t["pending"] == [0] + [1, 2] * ((N_FRAMES - 1) // 2) + [1]
+    assert [s["kf_inserted"] for s in t["stats"]] == [
+        1, 1, 1, 3, 3, 5, 5, 7, 7, 9, 9, 11]
+    assert t["inserted"] == list(range(1, N_FRAMES))
+    assert all(p is not None for p in t["entries"])
+    assert t["final"][0]["kf_inserted"] == N_FRAMES
+    ate = np.linalg.norm(np.asarray(t["traj"][2]) - centers, axis=1)
+    assert np.sqrt((ate ** 2).mean()) < E2E.ATE_MAX
+
+
+def test_recorded_poses_do_not_change(rgbd):
+    """Each call's trajectory entry is the same at the end: later frames'
+    work on the loop state never reaches a recorded pose. The port's
+    returned pose is its entry's."""
+    rec, _, _ = rgbd
+    for name in ("jax", "torch"):
+        r = rec[name]
+        for k, (p7, now) in enumerate(zip(r["entries"], r["recorded"])):
+            assert p7 is not None and now is not None, (name, k)
+            np.testing.assert_array_equal(p7, now, err_msg=f"{name} {k}")
+    for pose, p7 in zip(rec["torch"]["poses"], rec["torch"]["entries"]):
+        R, t = lie.pose7_unpack(torch.from_numpy(p7))
+        np.testing.assert_array_equal(R.numpy(), pose[0])
+        np.testing.assert_array_equal(t.numpy(), pose[1])
+
+
+@pytest.fixture(scope="module")
+def blanked(rgbd_ref, rgbd):
+    rec, _, _ = run_rgbd(rgbd_ref, BLANKS)
+    return rec
+
+
+def test_blank_frames_match_reference(blanked):
+    """Frame 6 fails in the step; frame 7, queued before the host has read
+    the failure, tracks against the reference keyframe, and frame 6's entry
+    is revoked at the drain. Frames 9 and 10 fail; the drain at frame 10
+    leaves the host LOST, frame 10's own verdict read at frame 11 keeps it
+    so, and frame 11 is relocalized on the host, with no KPI call for it
+    (system.py:666-677)."""
+    rec = blanked
+    _assert_same_bookkeeping(rec)
+    _assert_centres(rec)
+    t = rec["torch"]
+    assert [k for k, p in enumerate(t["entries"]) if p is None] == list(
+        BLANKS)
+    assert t["poses"][6] is not None and t["poses"][9] is not None
+    assert t["state"][6:] == ["OK", "LOST", "OK", "OK", "LOST", "OK"]
+    stats, _, _, kpi = t["final"]
+    assert stats["relocs"] == 1 and kpi == (0, 0, 0)
+    assert 11 not in t["inserted"]
+
+
+@pytest.fixture(scope="module")
+def early_loss(rgbd_ref, blanked):
+    rec, _, _ = run_rgbd(rgbd_ref, EARLY_BLANK)
+    return rec
+
+
+def test_early_loss_resets_like_reference(early_loss):
+    """Frame 2 fails in the step; the drain at frame 3 reads it with 2
+    keyframes in the map and resets the system (lost right after
+    initialization), which voids frame 3's step (system.py:703-706): the
+    trajectory starts again at frame 3, recorded lost, and frame 4
+    initializes again."""
+    rec = early_loss
+    _assert_same_bookkeeping(rec)
+    _assert_centres(rec, n_min=N_FRAMES - 4)
+    t = rec["torch"]
+    assert t["poses"][2] is not None and t["poses"][3] is None
+    assert t["state"][2:5] == ["OK", "NO_IMAGES_YET", "OK"]
+    assert [p is None for p in t["entries"]] == [True] + [False] * (
+        N_FRAMES - 4)
+    assert t["stats"][3]["kf_inserted"] == 0 and t["n_kf"][4] == 1
+
+
+# ---------------------------------------------------------------------------
+# The measurements behind the constants, run as a script (see the usage in
+# `main`)
+# ---------------------------------------------------------------------------
+
+def print_spread():
+    """POINTS_ATOL: both sequences through the reference and the port on
+    its frames, unmoved and with the depth maps moved by 1 ulp (seeds 1-4),
+    and through the port on its own frames."""
+    sj = JSys(jcam.Camera.create(**E2E.CAM), JCfg(**CFG), JSensor.RGBD)
+    for blanks in ((), BLANKS):
+        for seed in range(5):
+            rec = run_rgbd(sj, blanks, seed)[0]
+            own = run_rgbd(sj, blanks, seed, own_frames=True)[0]["torch"]
+            row = {name: [r["final"][0][k] for k in (
+                "points_created", "points_culled", "kf_culled")]
+                for name, r in (("jax", rec["jax"]),
+                                ("torch on its frames", rec["torch"]),
+                                ("torch on its own", own))}
+            print(f"blanks {blanks} ulp seed {seed}: created / culled / "
+                  f"keyframes culled {row}")
+
+
+def print_features():
+    """Why the RGB-D tests run the port on the reference's frames: the two
+    extractions of frame 0 and the first tracked frame's inliers."""
+    from orb_slam2_e_tpu.ops import lie as jlie
+    from orb_slam2_e_tpu_torch.models import tracking as ttrack
+    frames, _ = _frames()
+    cfg = dict(CFG, pipeline=False)
+    sj = JSys(jcam.Camera.create(**E2E.CAM), JCfg(**cfg), JSensor.RGBD)
+    st = SlamSystem(Camera.create(**E2E.CAM), SystemConfig(**cfg),
+                    Sensor.RGBD, device="cpu")
+    for s in (sj, st):
+        s.track_rgbd(*frames[0], 0.0)
+    j, t = jnp_dict(sj.last_frame), convert.to_numpy(st.last_frame)
+    print("frame 0: keypoints apart by up to",
+          np.abs(j["uvr"] - t["uvr"]).max(), "px, orientations by up to",
+          np.abs(j["angle"] - t["angle"]).max(), "| descriptor bytes apart:",
+          int((j["desc"] != t["desc"]).sum()), "of", j["desc"].size)
+    fj = sj._mk_frame_depth(*(jnp.asarray(x) for x in frames[1]))
+    jflags = JT.track_frame_fused(
+        sj.cam, sj.track_cfg, sj.map, fj, sj.last_frame, jlie.pose7_identity(),
+        jnp.bool_(False), jnp.int32(0))[3]
+    ref_inputs = (convert.map_state_from_numpy(jnp_dict(sj.map), "cpu"),
+                  convert.frame_from_numpy(jnp_dict(fj), "cpu"),
+                  convert.frame_from_numpy(jnp_dict(sj.last_frame), "cpu"))
+    own_inputs = (st.map, st._make_frame_inputs(tuple(
+        torch.as_tensor(x) for x in frames[1])), st.last_frame)
+    for name, (m, f, last) in (("reference", (None,) * 3),
+                               ("port, the reference's frames", ref_inputs),
+                               ("port, its own frames", own_inputs)):
+        if m is None:
+            n_in = int(np.asarray(jflags)[1])
+        else:
+            n_in = int(ttrack.track_frame_fused(
+                convert.camera_from_numpy(jnp_dict(sj.cam), "cpu"),
+                st.track_cfg, m, f, last,
+                lie.pose7_identity(device="cpu"), False, 0)[3][1])
+        print(f"frame 1 inliers, {name}: {n_in}")
+
+
+def print_chip_reference(which):
+    """chip_smoke.py's eleventh phase with the reference on the CPU:
+    `orbit` (30 frames) or `blank` (25, frame BLANK black), SystemConfig()
+    defaults: PIPE_REF."""
+    import chip_smoke as cs
+    from orb_slam2_e_tpu.utils.trajectory import ate_rmse
+    scene, poses, centers = cs.make_scene()
+    n = cs.PIPE_FRAMES if which == "orbit" else cs.PIPE_BLANK_FRAMES
+    inputs = [(cs.grey(scene, R, t), scene.depth_map(R, t))
+              for R, t in poses[:n]]
+    if which == "blank":
+        inputs[cs.BLANK] = (np.zeros_like(inputs[cs.BLANK][0]),
+                            inputs[cs.BLANK][1])
+    s = JSys(jcam.Camera.create(fx=cs.FX, fy=cs.FX, cx=cs.WIDTH / 2,
+                                cy=cs.HEIGHT / 2, bf=cs.BF), JCfg(),
+             JSensor.RGBD)
+    rec = _run({"jax": s}, lambda s, k: s.track_rgbd(*inputs[k], k / 30.0),
+               n)["jax"]
+    tracked = [k for k, p7 in enumerate(rec["entries"]) if p7 is not None]
+    ate = ate_rmse(np.asarray(rec["traj"][2], np.float64),
+                   centers[tracked].astype(np.float64), False)
+    print(which, "keyframes counted at", [0] + rec["inserted"], "lost",
+          [k for k in range(n) if k not in tracked], "kept", s.n_keyframes,
+          "SE3 ATE", round(float(ate), 4), rec["final"][0])
+
+
+def run_endo_reference(seed, frames, work):
+    """tools/run_endo_eval.py's protocol with the reference's
+    examples/mono_deformable.py, its system seeded with `seed` (the example
+    has no option for it), on the twin's CPU render of the endoscopy
+    sequences in `work`: the KPI line and the map's keyframes and
+    landmarks."""
+    import os
+    import runpy
+    import sys
+    from pathlib import Path
+    from orb_slam2_e_tpu.models import system as jsystem
+    from orb_slam2_e_tpu_torch.tools import make_proxy_endo
+    work = Path(work).resolve()
+    d_map, d_rel = work / "proxy_endo_map", work / "proxy_endo_reloc"
+    for d, phase in ((d_map, "map"), (d_rel, "reloc")):
+        if not (d / "rgb.txt").exists():
+            make_proxy_endo.main([str(d), "--phase", phase, "--frames",
+                                  str(frames), "--device", "cpu"])
+    settings = d_map / "settings_build.yaml"
+    settings.write_text((d_map / "settings.yaml").read_text().replace(
+        "RelocParam.bTestAllFrames: 1", "RelocParam.bTestAllFrames: 0"))
+    init = jsystem.SlamSystem.__init__
+
+    def seeded(self, cam, cfg=jsystem.SystemConfig(),
+               sensor=jsystem.Sensor.MONOCULAR, seed_=0):
+        init(self, cam, cfg, sensor, seed=seed)
+    jsystem.SlamSystem.__init__ = seeded
+    example = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "mono_deformable.py")
+    map_npz = work / f"endo_map_seed{seed}.npz"
+    for argv in ([str(settings), str(d_map), "--save-map", str(map_npz)],
+                 [str(d_rel / "settings.yaml"), str(d_rel), "--load-map",
+                  str(map_npz), "--stats",
+                  str(work / f"StatsReloc_seed{seed}.txt")]):
+        sys.argv = ["mono_deformable.py", *argv]
+        runpy.run_path(example, run_name="__main__")
+    z = np.load(map_npz)
+    print(f"seed {seed}: map keyframes {int(z['map_kf_valid'].sum())} "
+          f"(counted {int(z['extra_n_keyframes'])}), landmarks "
+          f"{int(z['map_lm_valid'].sum())}")
+
+
+def main(argv):
+    """JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_pipeline.py
+        spread                 # POINTS_ATOL (~15 min)
+        features               # the extractors apart (~1 min)
+        chip orbit|blank       # chip_smoke's PIPE_REF (~10 min each)
+        endo SEED WORKDIR [FRAMES]   # the reference's endoscopy KPI at a
+                               # seed (240 frames: ~50 min)"""
+    if argv[:1] == ["spread"]:
+        print_spread()
+    elif argv[:1] == ["features"]:
+        print_features()
+    elif argv[:1] == ["chip"]:
+        print_chip_reference(argv[1])
+    elif argv[:1] == ["endo"]:
+        run_endo_reference(int(argv[1]), int(argv[3]) if len(argv) > 3
+                           else 240, argv[2])
+    else:
+        print(main.__doc__)
+
+
+if __name__ == "__main__":
+    import sys
+    main(sys.argv[1:])

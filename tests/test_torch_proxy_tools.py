@@ -226,8 +226,8 @@ def test_run_proxy_eval_on_a_tiny_sequence(tmp_path, monkeypatch):
             "package"} <= set(r)
     assert r["frames_tracked"] == r["total_frames"] == r["frames"] == 6
     assert r["ate_rmse_frames_m"] < run_proxy_eval.RGBD_ATE_MAX
-    assert (r["device"], r["package"], r["alignment"]) == \
-        ("cpu", "torch", "SE3 (no scale)")
+    assert (r["device"], r["package"], r["alignment"], r["loop"]) == \
+        ("cpu", "torch", "SE3 (no scale)", "pipelined")
     assert r["textures"] == list(pr.TEXTURES)
     assert sorted(os.listdir(out)) == [
         "CameraTrajectory_rgbd_xyz.txt", "KeyFrameTrajectory_rgbd_xyz.txt",
@@ -294,6 +294,9 @@ def test_run_endo_eval_on_a_tiny_sequence(tmp_path, monkeypatch):
     assert 0 <= kpi["map_frames_tracked"] <= frames
     assert (kpi["amp"], kpi["frames"], kpi["device"]) == (0.12, frames,
                                                          "cpu")
+    # the map phase as the examples run it; the KPI protocol synchronous
+    assert (kpi["map_loop"], kpi["reloc_loop"]) == ("pipelined",
+                                                    "synchronous")
     assert sorted(os.listdir(out)) == ["ENDO_KPI.json",
                                        "StatsReloc_endo.txt"]
     assert (tmp_path / "data" / "proxy_endo_map" / "endo_map.npz").exists()

@@ -67,6 +67,16 @@ def test_profile_step(sensor, capsys):
         assert int(lines[2].split()[1]) >= 2      # a map was built
 
 
+def test_profile_step_pipelined(capsys):
+    """`--pipeline` builds the map and profiles the frames through the
+    pipelined loop."""
+    profile_step.main(SMALL + ["--sensor", "rgbd", "--pipeline"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[1].endswith("pipelined loop")
+    assert int(lines[2].split()[1]) >= 2
+    assert any(ln.startswith("profile over 2 steady frames") for ln in lines)
+
+
 def test_busy_union_counts_overlap_once():
     assert profile_step._union_us([]) == 0.0
     assert profile_step._union_us([(0, 10), (5, 12), (20, 21), (3, 4)]) == 13
