@@ -11,8 +11,9 @@ entry. Times it by replaying a CUDA graph of back-to-back launches, at level
 plain version and the card's bound for the same work. Then drives
 `SlamSystem` on the card through eight phases on synthetic 640x480 scenes
 (8 levels, 1000 features), the parallel package through a ninth, the
-real-texture proxy sequences through a tenth and the pipelined frame loop
-through an eleventh, each through the entry point a user calls, with
+real-texture proxy sequences through a tenth, the pipelined frame loop
+through an eleventh and the KITTI and EuRoC entry points through a twelfth,
+each through the entry point a user calls, with
 everything, loop closing included, at its default unless said. Phases 1-7
 run the synchronous frame loop (`pipeline=False`); the examples of phases
 8 and 10 run the pipelined one, as `SystemConfig.from_settings` gives it:
@@ -66,7 +67,7 @@ run the synchronous frame loop (`pipeline=False`); the examples of phases
    the distorted EuRoC cameras rendered on the card and on the CPU by the
    same code, held to each other; the endoscopy configuration's pyramid (6
    levels at scale 1.1 from 480x360) through the kernel, bit for bit
-   against the plain twin; then 40 frames of proxy_xyz rendered on the
+   against the plain twin; then 20 frames of proxy_xyz rendered on the
    card by `make_proxy_dataset.main` and tracked by `run_proxy_eval.main`
    through `examples.rgbd_tum` and `examples.mono_tum`, at the JAX
    package's end-to-end gates, beside the reference's numbers on the same
@@ -78,14 +79,25 @@ run the synchronous frame loop (`pipeline=False`); the examples of phases
    be the reference's; then both loops on the next frames from the same
    state (the system and a copy of it switched to `pipeline=False`, in
    turns): frames/s, and synchronizing calls, launches and device-busy ms
-   per frame under `torch.profiler`.
+   per frame under `torch.profiler`;
+12. the KITTI and EuRoC entry points: KE_FRAMES frames of the KITTI proxy
+   (640x256 stereo) and of the EuRoC proxy (raw distorted 512x384 stereo
+   with LEFT./RIGHT. blocks) rendered on the card by the generators; both
+   new pyramids through the kernel in one launch each, bit for bit against
+   the plain twin, timed by replay beside their bound; the EuRoC rectifier
+   on the card against the CPU's on one raw pair; then `run_proxy_eval.main`
+   runs `stereo_kitti`, `mono_kitti`, `stereo_euroc` (rectified),
+   `mono_euroc` and `stream_mono` on them with their stages timed, at the
+   e2e gates where the reference meets them on the same files (KE_REF),
+   else at the reference's own result.
 
 Each phase checks tracking, trajectory error, its own gates and that every
 extraction went through the kernel in exactly one launch (the launch count
 is zeroed before the phase and read after it; in phase 9 one launch per
 step for all lanes; in phase 11 the frames of the two loops' comparison are
-counted apart). Tracked frames are counted from the trajectory after
-`get_trajectory()`, which settles the pipelined loop's verdicts. Prints
+counted apart; in phase 12 two per stereo frame). Tracked frames are
+counted from the trajectory after `get_trajectory()`, which settles the
+pipelined loop's verdicts. Prints
 per-stage median ms, each phase's seconds and the total, the card's name
 and power limit, a JSON line describing the kernel, and as its last line
 {"ok": true, "device": {...}}. Exits non-zero, without that line, when
@@ -154,17 +166,50 @@ DEFORM_REF_RELOCS, DEFORM_REF_TP, DEFORM_SLACK = 7, 6, 1
 # warm-up and PAR_STEPS timed steps) on the RGB-D phase's map
 PAR_LANES, PAR_STEPS = 8, 12
 # the tenth phase: the real-texture proxies of orb_slam2_e_tpu_torch/tools
-PROXY_FRAMES = 40        # frames of proxy_xyz (all four textures) tracked
+# frames of proxy_xyz (all four textures) tracked; 40 until the twelfth
+# phase took the run past 800 s on a slow host
+PROXY_FRAMES = 20
 # a card render against the CPU's: grey levels and metres apart, as
 # tests/test_torch_proxy_render.py measures the port against the reference
 # on the CPU (tests/_torch_proxy.py: equal, bit for bit)
 PROXY_RENDER_MAX = 0
 PROXY_DEPTH_ATOL = 0.0
 # the reference (examples/rgbd_tum.py and mono_tum.py of the JAX package,
-# on the CPU) on the same 40 files: ATE in metres, frames in the trajectory
-# file, the frame mono initialized at
-PROXY_REF = {"rgbd": {"ate": 0.0061, "tracked": 40},
-             "mono": {"ate": 0.0200, "tracked": 34, "init": 6}}
+# on the CPU) on the same PROXY_FRAMES files: ATE in metres, frames in the
+# trajectory file, the frame mono initialized at (`python
+# tests/test_torch_kitti_euroc.py ref DATA OUT --frames 20 --entries
+# rgbd_xyz,mono_xyz`; at 40 frames it prints 0.0061 / 40 and 0.0200 / 34 /
+# 6)
+PROXY_REF = {"rgbd": {"ate": 0.0080, "tracked": 20},
+             "mono": {"ate": 0.0095, "tracked": 14, "init": 6}}
+# the twelfth phase: the KITTI (640x256 stereo) and EuRoC (raw distorted
+# 512x384 stereo) proxies, KE_FRAMES frames each rendered on the card, through
+# the five entry points that read them
+KE_FRAMES = 20
+# the reference (the JAX package's five examples on the CPU, on the same
+# KE_FRAMES files; printed by `python tests/test_torch_kitti_euroc.py ref
+# DATA OUT --frames 20`): ATE in metres, frames in the frame trajectory,
+# keyframes, the frame mono initialized at. `run_proxy_eval` holds each entry
+# to the e2e gate where the reference meets it, else to the reference's own
+# result (tracked frames less one, ATE within 2x)
+KE_REF = {
+    "stereo_kitti": {"ate_rmse_frames_m": 0.0039, "frames_tracked": 20,
+                     "ate_rmse_keyframes_m": 0.0024, "n_keyframes": 11},
+    "mono_kitti": {"ate_rmse_frames_m": 0.0105, "frames_tracked": 12,
+                   "ate_rmse_keyframes_m": 0.0075, "n_keyframes": 13,
+                   "initialized_at_frame": 8},
+    "stereo_euroc": {"ate_rmse_frames_m": 0.0139, "frames_tracked": 20,
+                     "ate_rmse_keyframes_m": 0.0149, "n_keyframes": 8},
+    "mono_euroc": {"ate_rmse_frames_m": 0.0096, "frames_tracked": 13,
+                   "ate_rmse_keyframes_m": 0.009, "n_keyframes": 7,
+                   "initialized_at_frame": 7},
+    "stream_euroc": {"ate_rmse_frames_m": 0.0096, "frames_tracked": 13,
+                     "ate_rmse_keyframes_m": 0.009, "n_keyframes": 7,
+                     "initialized_at_frame": 7}}
+# a rectified pair on the card against the CPU's from the same raw frame:
+# each pixel is a few float32 lerps of grey levels below 256 (ulp 2^-16),
+# which fused multiply-adds on the card round apart: at most 16 ulps
+KE_RECT_ATOL = 2.0 ** -12
 # the pipelined loop (the eleventh phase): the orbit's first 30 frames at
 # SystemConfig() defaults, then PIPE_STEADY + PIPE_PROFILED frames through
 # it and through a copy of it switched to the synchronous loop, and the
@@ -2043,6 +2088,168 @@ def run_pipeline(orbit):
     return r["launches"] + rb["launches"]
 
 
+def check_ke_pyramids(frames: dict) -> dict:
+    """The KITTI (640x256) and EuRoC (512x384) pyramids of the extractor the
+    proxies' settings give (8 levels at 1.2, FAST 20 / 7), each through the
+    kernel in one launch against the plain twin, bit for bit; then each
+    one's replay time beside its bound. Returns the record's new keys."""
+    from orb_slam2_e_tpu_torch.ops import kernels, orb
+    ex = orb.OrbExtractor()
+    out = {}
+    for name, img in frames.items():
+        levels = ex._pyramid(torch.as_tensor(img, device="cuda"))
+        shapes = [tuple(v.shape) for v in levels]
+        before = kernels.fast_nms_blur.launches
+        got = kernels.fast_nms_blur_pyramid(levels, ex.ini_th, ex.min_th)
+        expect(kernels.fast_nms_blur.launches == before + 1,
+               f"the {name} pyramid took more than one launch")
+        want = kernels.fast_nms_blur_pyramid_plain(levels, ex.ini_th,
+                                                   ex.min_th)
+        torch.cuda.synchronize()
+        for lvl, (g, w) in enumerate(zip(got, want)):
+            expect_equal(g, w, f"[ke] {name} pyramid level {lvl}")
+        offsets, total = kernels.pyramid_layout(shapes)
+        buf = torch.empty((2, total), dtype=torch.float32, device="cuda")
+        ms = replay_ms(lambda i: kernels.launch_into(
+            levels, buf[0], buf[1], ex.ini_th, ex.min_th, offsets))
+        raw = [kernels.fast_score_map(v, ex.ini_th, ex.min_th)
+               for v in levels]
+        b, by, full, counts = bound_ms(levels, raw)
+        by_bytes = counts["pixels"] * BYTES_PER_PIXEL / PEAK_BYTES_PER_S * 1e3
+        print(f"[ke] {name} pyramid {shapes} in one launch: scores equal, "
+              f"blur diff 0; replay (warm) {ms:.5f} ms, bound {b:.5f} ms "
+              f"by {by} ({b / ms:.1%}; {json.dumps(counts)}; by bytes "
+              f"{by_bytes:.5f} ms), computed in full {full:.5f} ms")
+        out.update({f"replay_ms_pyramid_{name}": ms,
+                    f"bound_ms_pyramid_{name}": b,
+                    f"bound_by_pyramid_{name}": by,
+                    f"byte_bound_ms_pyramid_{name}": by_bytes})
+    return out
+
+
+def check_ke_rectifier(settings: str, left: str, right: str):
+    """The EuRoC proxy's rectifier (LEFT./RIGHT. blocks) on one raw pair,
+    built on the card and on the CPU: the maps equal, the pairs within
+    KE_RECT_ATOL; prints the share of pixels apart."""
+    from orb_slam2_e_tpu_torch.utils.config import (
+        stereo_rectifier_from_settings)
+    from orb_slam2_e_tpu_torch.utils.datasets import read_gray
+    raw = [torch.as_tensor(read_gray(p)) for p in (left, right)]
+    up = [im.to("cuda") for im in raw]
+    card = stereo_rectifier_from_settings(settings, device="cuda")
+    cpu = stereo_rectifier_from_settings(settings, device="cpu")
+    expect(torch.equal(card.map_l.cpu(), cpu.map_l)
+           and torch.equal(card.map_r.cpu(), cpu.map_r),
+           "rectify maps differ card vs CPU")
+    ms = time_ms(lambda: card(*up), n=20)
+    for side, g, c in zip(("left", "right"), card(*up), cpu(*raw)):
+        d = (g.cpu() - c).abs()
+        err, share = float(d.max()), float((d > 0).float().mean())
+        print(f"[ke] rectified {side} {tuple(g.shape)}: card vs CPU max "
+              f"|diff| {err:.3g} grey levels on {share:.2%} of the pixels "
+              f"(tolerance {KE_RECT_ATOL:.3g}); zeros (out of range) equal: "
+              f"{bool(torch.equal(g.cpu() == 0, c == 0))}")
+        expect(err <= KE_RECT_ATOL, f"rectified {side}: {err}")
+    print(f"[ke] rectifier on the card: {ms:.4f} ms per pair (CUDA events; "
+          f"raw frames already on the card)")
+
+
+def run_kitti_euroc():
+    """The port's KITTI and EuRoC entry points on the card: what a user
+    runs. `make_proxy_kitti.main` and `make_proxy_euroc.main` render
+    KE_FRAMES frames of each proxy on the card and write them; the two new
+    pyramids go through the kernel against the twin and the rectifier
+    through the card against the CPU; then `run_proxy_eval.main` runs
+    `stereo_kitti`, `mono_kitti`, `stereo_euroc` (rectified), `mono_euroc`
+    (raw frames, distorted camera) and `stream_mono` (the line protocol on
+    the same frames), each in a working directory of its own, with its
+    stages timed, at the gates of KE_REF. Returns the kernel launches of
+    the five examples."""
+    import contextlib
+    import io
+    import tempfile
+    from orb_slam2_e_tpu_torch.ops import kernels
+    from orb_slam2_e_tpu_torch.tools import (make_proxy_euroc,
+                                             make_proxy_kitti,
+                                             run_proxy_eval as rpe)
+    from orb_slam2_e_tpu_torch.utils.datasets import (load_euroc,
+                                                      load_kitti, read_gray)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = {}
+        for seq, module in (("kitti", make_proxy_kitti),
+                            ("euroc", make_proxy_euroc)):
+            d = os.path.join(tmp, f"proxy_{seq}")
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                module.main([d, "--frames", str(KE_FRAMES),
+                             "--device", "cuda"])
+            print(f"[ke] {module.__name__.split('.')[-1]}: {KE_FRAMES} "
+                  f"frames rendered on the card and written in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            with open(os.path.join(d, "proxy.json")) as f:
+                data[seq] = json.load(f)
+        kitti = os.path.join(tmp, "proxy_kitti")
+        euroc = os.path.join(tmp, "proxy_euroc")
+        left = load_euroc(euroc)[1][KE_FRAMES // 2]
+        record = check_ke_pyramids({
+            "kitti": read_gray(load_kitti(kitti)[1][0]),
+            "euroc": read_gray(left)})
+        check_ke_rectifier(os.path.join(euroc, "settings.yaml"), left,
+                           left.replace("/cam0/", "/cam1/"))
+        ref_path = os.path.join(tmp, "reference.json")
+        with open(ref_path, "w") as f:
+            json.dump({key: dict(ref, total_frames=KE_FRAMES,
+                                 data=data[key.split("_")[1]])
+                       for key, ref in KE_REF.items()}, f)
+        kernels.fast_nms_blur.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rpe.main(["--seqs", "kitti,euroc", "--sensors",
+                          "stereo,mono,stream", "--frames", str(KE_FRAMES),
+                          "--device", "cuda", "--stage-ms",
+                          "--data-dir", tmp, "--out-dir",
+                          os.path.join(tmp, "eval"), "--ref", ref_path])
+        except SystemExit as e:
+            print(out.getvalue()[-4000:])
+            raise AssertionError(f"run_proxy_eval: {e}") from None
+        wall = time.perf_counter() - t0
+        launches = kernels.fast_nms_blur.launches
+        with open(os.path.join(tmp, "eval", "PROXY_RESULTS.json")) as f:
+            res = json.load(f)
+    for line in out.getvalue().splitlines():
+        if line.startswith(("proxy_", "stereo_", "mono_", "stream_")):
+            print(f"[ke] run_proxy_eval> {line}")
+    card = card_line()
+    for key, ref in KE_REF.items():
+        r = res[key]
+        init = (f", initialized at frame {r['initialized_at_frame']} "
+                f"(reference {ref['initialized_at_frame']})"
+                if "initialized_at_frame" in r else "")
+        print(f"[ke] {key}: {r['frames_tracked']} of {KE_FRAMES} frames "
+              f"(reference {ref['frames_tracked']}), "
+              f"{r['alignment'].split()[0]} ATE {r['ate_rmse_frames_m']} m "
+              f"(reference {ref['ate_rmse_frames_m']}), keyframes "
+              f"{r['n_keyframes']} at {r['ate_rmse_keyframes_m']} m "
+              f"(reference {ref['n_keyframes']} at "
+              f"{ref['ate_rmse_keyframes_m']}){init}; "
+              f"{r['frames_per_s']:.2f} frames/s, {r['seconds']:.1f} s; "
+              f"gate: {r['gate']}")
+        print(f"[ke] {key} stage ms (median): {json.dumps(r['stage_ms'])} "
+              f"calls {json.dumps(r['stage_calls'])}")
+        expect(r["device"] == card and r["package"] == "torch",
+               f"{key}: not run on the card")
+    print(f"[ke] the five examples: {wall:.1f} s; fast_nms_blur launches: "
+          f"{launches}")
+    # two extractions per stereo frame, one per monocular frame
+    expect(launches == 7 * KE_FRAMES, f"kitti/euroc launches {launches}")
+    expect("jax" not in sys.modules and "cv2" not in sys.modules
+           and "matplotlib" not in sys.modules, "jax, cv2 or matplotlib "
+           "was imported")
+    return launches, record
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2074,20 +2281,25 @@ def main() -> int:
     n_par, par_record = phase(run_parallel, orbit, rgbd_state)
     record["launches"] += n_par + phase(run_proxy) + phase(run_pipeline,
                                                            orbit)
+    n_ke, ke_record = phase(run_kitti_euroc)
+    record["launches"] += n_ke
     record.update(par_record)
+    record.update(ke_record)
     # one launch per extraction: 30 + 20 + 2 x 10 + 25 on the orbit, 96
     # around the ring, 6 + 12 + 30 in localization-only mode, 20 + 20 on
     # the deforming surface (none in the deformable phase's part A), 12 + 20
     # through the examples from disk; in the parallel phase one per step
     # for all 8 lanes (13), 8 bootstrap frames, 13 single-lane frames and
-    # one profiled step of each kind; 40 + 40 proxy frames through the
-    # examples; 30 + 25 orbit frames through the pipelined loop
+    # one profiled step of each kind; 20 + 20 proxy frames through the
+    # examples; 30 + 25 orbit frames through the pipelined loop; on the
+    # KITTI and EuRoC proxies two per stereo frame and one per monocular
+    # frame: 2 + 1 + 2 + 1 + 1 per frame over the five examples
     expect(record["launches"] == 75 + 2 * STEREO_FRAMES + LOOP_FRAMES
            + LOC_ORBIT_FRAMES
            + LOC_MAPPED + LOC_FRAMES + DEFORM_MAPPED + DEFORM_FRAMES
            + DISK_FRAMES + DISK_MONO_FRAMES
            + PAR_LANES + 2 * (PAR_STEPS + 1) + 2 + 2 * PROXY_FRAMES
-           + PIPE_FRAMES + PIPE_BLANK_FRAMES,
+           + PIPE_FRAMES + PIPE_BLANK_FRAMES + 7 * KE_FRAMES,
            f"launch total {record['launches']}")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
