@@ -108,3 +108,14 @@ def fullmap_search(cam: Camera, cfg: TrackConfig, state: MapState,
         frame = bind_matches(frame, torch.where(mask, ids, INVALID).to(
             torch.int32), best_feat, dists)
     return frame, ((frame.point_ids >= 0) & frame.valid).sum()
+
+
+def fullmap_search_and_optimize(cam: Camera, cfg: TrackConfig,
+                                state: MapState, frame: Frame,
+                                radius_scale: float,
+                                max_hamming: int = matching.TH_RELOC):
+    """Full-map projection search, then the rigid pose re-optimization.
+    Returns (frame, n_inliers)."""
+    frame, _ = fullmap_search(cam, cfg, state, frame, radius_scale,
+                              max_hamming)
+    return optimize_frame_pose(cam, cfg, state, frame)

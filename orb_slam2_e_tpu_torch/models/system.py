@@ -324,8 +324,8 @@ class SlamSystem:
             img_l, img_r = inputs
             feats = self.extractor(img_l)
             depth = stereo_ops.stereo_depth_for_features(
-                self.cam, img_l, img_r, feats, self.right_extractor,
-                self.cfg.scale_factor)
+                self.cam, img_l, img_r, feats, self.cfg.scale_factor,
+                self.right_extractor)
             return frame_from_features(self.cam, feats, depth)
         if self.sensor == Sensor.RGBD:
             feats = self.extractor(inputs[0])

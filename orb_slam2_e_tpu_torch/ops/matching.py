@@ -123,13 +123,16 @@ def octave_range_mask(pred_octave: torch.Tensor, kp_octave: torch.Tensor,
 
 def search_windowed(bits_a, bits_b, uv_a, uv_b, valid_a, valid_b,
                     radius, max_dist: int = TH_LOW, ratio: float = 0.9,
-                    angles=None):
+                    extra_mask=None, angles=None):
     """Windowed search a -> b (reference ORBmatcher::SearchForInitialization:
-    window, ratio test, rotation check). Returns (match_idx (Na,) int32 or
-    -1, dist (Na,) int32, BIG where unmatched)."""
+    window, ratio test, rotation check); `extra_mask` (Na, Nb) bool is ANDed
+    into the window. Returns (match_idx (Na,) int32 or -1, dist (Na,)
+    int32, BIG where unmatched)."""
     dist = hamming_matrix(bits_a, bits_b)
     mask = window_mask(uv_a, uv_b, radius)
     mask &= valid_a[:, None] & valid_b[None, :]
+    if extra_mask is not None:
+        mask &= extra_mask
     best_idx, d1, d2 = masked_best2(dist, mask)
     ok = (d1 <= max_dist) & (d1.to(torch.float32)
                              < ratio * d2.to(torch.float32))

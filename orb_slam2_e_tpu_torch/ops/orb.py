@@ -48,6 +48,10 @@ def make_pattern(seed: int = 1234) -> np.ndarray:
 
 _PATTERN = make_pattern()
 
+# the per-pixel stage's plain functions, under the reference's names
+fast_score_map = kernels.fast_score_map
+gaussian_blur7 = kernels.gaussian_blur7
+
 # per-row half-chord widths of the radius-15 disc (index dy+15)
 _CHORD_XMAX = np.array([int(np.floor(np.sqrt(HALF_PATCH ** 2 - dy ** 2)))
                         for dy in range(-HALF_PATCH, HALF_PATCH + 1)],
@@ -62,6 +66,10 @@ class OrbFeatures(NamedTuple):
     octave: torch.Tensor    # (N,) int32 pyramid level
     desc: torch.Tensor      # (N, 32) uint8 packed 256-bit descriptor
     valid: torch.Tensor     # (N,) bool
+
+    @property
+    def capacity(self):
+        return self.uv.shape[0]
 
 
 def level_quotas(n_features: int, scale_factor: float, n_levels: int) -> list:
@@ -244,6 +252,32 @@ def orientations_from_maps(m10, m01, uv):
     F = torch.nn.functional
     return torch.atan2(F.pad(m01.reshape(-1)[flat], pad),
                        F.pad(m10.reshape(-1)[flat], pad))[:n]
+
+
+def _circular_mask_offsets(radius: int = HALF_PATCH) -> np.ndarray:
+    ys, xs = np.mgrid[-radius:radius + 1, -radius:radius + 1]
+    mask = (xs ** 2 + ys ** 2) <= radius ** 2
+    return np.stack([xs[mask], ys[mask]], axis=-1).astype(np.int32)
+
+
+_DISC = _circular_mask_offsets()
+
+
+def compute_orientations(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid angle per keypoint, atan2(m01, m10) over the
+    radius-15 disc gathered around each keypoint (reference IC_Angle).
+    The extractor takes the same moments from `orientation_moment_maps`."""
+    H, W = img.shape
+    flat = img.reshape(-1)
+    offs = torch.as_tensor(_DISC, device=img.device)          # (K, 2)
+    pts = uv.to(torch.int32)[:, None, :] + offs[None]        # (N, K, 2)
+    x = torch.clamp(pts[..., 0], 0, W - 1).to(torch.int64)
+    y = torch.clamp(pts[..., 1], 0, H - 1).to(torch.int64)
+    vals = flat[y * W + x]                                    # (N, K)
+    offs = offs.to(torch.float32)
+    m10 = torch.sum(vals * offs[None, :, 0], dim=1)
+    m01 = torch.sum(vals * offs[None, :, 1], dim=1)
+    return torch.atan2(m01, m10)
 
 
 def compute_descriptors(img_blur: torch.Tensor, uv: torch.Tensor,

@@ -17,7 +17,7 @@ import torch
 from . import matching
 from .ba import _nanmedian_mid
 from .camera import Camera
-from .orb import OrbFeatures
+from .orb import OrbExtractor, OrbFeatures
 
 SAD_HALF = 5          # 11x11 window (reference w=5)
 SLIDE = 5             # +-5 px slide (reference L=5)
@@ -94,11 +94,19 @@ def stereo_match(cam: Camera, feats_l: OrbFeatures, feats_r: OrbFeatures,
 
 
 def stereo_depth_for_features(cam: Camera, img_l, img_r,
-                              feats_l: OrbFeatures, extractor,
-                              scale_factor: float = 1.2) -> torch.Tensor:
+                              feats_l: OrbFeatures, scale_factor: float = 1.2,
+                              extractor=None,
+                              n_levels: int = 8) -> torch.Tensor:
     """Extract the right image with `extractor` (the left one's pyramid:
     a mismatched right pyramid finds the same corners at other octaves and
-    the octave band drops them) and match. Returns depth (F,)."""
+    the octave band drops them) and match. Returns depth (F,).
+
+    Without an extractor, one is built for this call with the left
+    features' capacity, `scale_factor` and `n_levels`; nothing is cached
+    (`SlamSystem` keeps its own in `right_extractor`)."""
+    if extractor is None:
+        extractor = OrbExtractor(n_features=feats_l.capacity,
+                                 scale_factor=scale_factor, n_levels=n_levels)
     feats_r = extractor(img_r)
     _, depth = stereo_match(cam, feats_l, feats_r, img_l, img_r, scale_factor)
     return depth

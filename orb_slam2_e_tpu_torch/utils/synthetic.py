@@ -125,11 +125,15 @@ def make_ring_scene(n_points=600, seed=0, ring_radius=9.0, band_height=2.5,
     return scene
 
 
-def circle_trajectory(n_frames=64, radius=2.0, frac=1.1):
+def circle_trajectory(n_frames=64, radius=2.0, frac=1.1, seed=0,
+                      jitter=0.0):
     """Camera centers on a circle of `radius` in the x-z plane, the optical
     axis pointing radially outward; `frac` > 1 closes the loop and keeps
-    going, so the revisit lasts several keyframes. Returns ([(R, t)] Tcw
-    poses, (N, 3) camera centers)."""
+    going, so the revisit lasts several keyframes. `jitter` turns each
+    camera by a random rotation of that many radians (standard deviation
+    per axis), drawn from `seed`. Returns ([(R, t)] Tcw poses, (N, 3)
+    camera centers)."""
+    rng = np.random.RandomState(seed)
     poses, centers = [], []
     for k in range(n_frames):
         th = 2 * np.pi * frac * k / n_frames
@@ -139,7 +143,10 @@ def circle_trajectory(n_frames=64, radius=2.0, frac=1.1):
         zax = np.array([np.sin(th), 0.0, np.cos(th)], np.float32)
         xax = np.array([np.cos(th), 0.0, -np.sin(th)], np.float32)
         yax = np.array([0.0, 1.0, 0.0], np.float32)
-        R = np.stack([xax, yax, zax], 1).T
+        Rwc = np.stack([xax, yax, zax], 1)
+        if jitter:
+            Rwc = Rwc @ so3_exp_np(rng.randn(3).astype(np.float32) * jitter)
+        R = Rwc.T
         t = -R @ c
         poses.append((R.astype(np.float32), t.astype(np.float32)))
         centers.append(c)

@@ -2,21 +2,39 @@
 the reference's on inputs from a seed: `lie.se3_to_mat4` / `se3_from_mat4`,
 `Camera.baseline`, `camera.distort_normalized`, `camera.project(distort=)`,
 `camera.project_stereo`, `matching.hamming_pairs`, `matching.mutual_filter`,
-`bow.save_vocabulary`; and `synthetic.orbit_trajectory`'s jitter."""
+`bow.save_vocabulary`; and `synthetic.orbit_trajectory`'s jitter. Then
+the reference functions and arguments added to close the port:
+`orb.compute_orientations`, `orb.fast_score_map`, `orb.gaussian_blur7`,
+`OrbFeatures.capacity`, `relocalization.fullmap_search_and_optimize`,
+`matching.search_windowed(extra_mask=)`,
+`stereo.stereo_depth_for_features(extractor=None, n_levels=)` and
+`synthetic.circle_trajectory(seed=, jitter=)`."""
 
 import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
 
-from _torch_port import tnp
+from _torch_port import (DEFORMED_CAM, as_jax, jnp_dict, tnp)
+from test_stereo import BF, CX_, CY_, FX, FY, H, W, _stereo_pair
+from test_torch_reloc import LM_CENTRE_MAX, LM_ROT_MAX, _pose_difference
+from test_torch_stereo import DEPTH_RTOL, VALID_AGREE
+from orb_slam2_e_tpu.models import relocalization as jreloc
+from orb_slam2_e_tpu.models.frame import Frame as JFrame
+from orb_slam2_e_tpu.models.map_state import MapState as JMap
+from orb_slam2_e_tpu.models.tracking import TrackConfig as JTrackConfig
 from orb_slam2_e_tpu.ops import bow as jbow
 from orb_slam2_e_tpu.ops import camera as jcam
 from orb_slam2_e_tpu.ops import lie as jlie
 from orb_slam2_e_tpu.ops import matching as jmatch
+from orb_slam2_e_tpu.ops import orb as jorb
+from orb_slam2_e_tpu.ops import stereo as jstereo
 from orb_slam2_e_tpu.utils import synthetic as jsyn
-from orb_slam2_e_tpu_torch.ops import bow, camera, lie, matching
-from orb_slam2_e_tpu_torch.utils import synthetic
+from orb_slam2_e_tpu_torch.models import relocalization
+from orb_slam2_e_tpu_torch.models.tracking import TrackConfig
+from orb_slam2_e_tpu_torch.ops import (bow, camera, kernels, lie, matching,
+                                       orb, stereo)
+from orb_slam2_e_tpu_torch.utils import convert, synthetic
 
 TUM1 = dict(fx=517.306408, fy=516.469215, cx=318.643040, cy=255.313989,
             k1=0.262383, k2=-0.953104, p1=-0.005358, p2=0.002628,
@@ -182,6 +200,206 @@ def test_orbit_trajectory_jitter():
         np.testing.assert_array_equal(t, t2)
     shaken, c1 = synthetic.orbit_trajectory(6, 1.0, 0.03, seed=5, jitter=0.02)
     want, wc = jsyn.orbit_trajectory(6, 1.0, 0.03, seed=5, jitter=0.02)
+    np.testing.assert_array_equal(c0, c1)             # centres stay
+    np.testing.assert_array_equal(c1, wc)
+    for (R, t), (Rw, tw) in zip(shaken, want):
+        np.testing.assert_allclose(R, Rw, atol=1e-6)
+        np.testing.assert_allclose(t, tw, atol=1e-6)
+        np.testing.assert_allclose(R @ R.T, np.eye(3), atol=1e-6)
+    assert np.abs(shaken[3][0] - plain[3][0]).max() > 1e-3
+
+
+
+# ------------------------------------------ the functions that closed the port
+
+def _orientation_inputs(case):
+    """The images and keypoints of the reference's orientation tests
+    (tests/test_orb.py:47-93)."""
+    if case in ("right", "below"):
+        img = np.zeros((64, 64), np.float32)
+        if case == "right":
+            img[:, 32:] = 200
+        else:
+            img[32:, :] = 200
+        return img, np.array([[32.0, 32.0]], np.float32)
+    if case == "maps":
+        rng = np.random.RandomState(7)
+        img = rng.rand(96, 128).astype(np.float32) * 255
+        return img, rng.uniform(20, 75, (40, 2)).astype(np.float32)
+    if case in ("rotation", "rotated"):
+        import scipy.ndimage as ndi
+        rng = np.random.RandomState(1)
+        img = ndi.gaussian_filter(rng.rand(96, 96).astype(np.float32) * 255,
+                                  3)
+        if case == "rotated":
+            img = ndi.rotate(img, -30.0, reshape=False, order=1)
+        return img, np.array([[48.0, 48.0]], np.float32)
+    rng = np.random.RandomState(2)                    # "distinct"
+    return (rng.rand(128, 128).astype(np.float32) * 255,
+            np.array([[40.0, 40.0], [90.0, 80.0]], np.float32))
+
+
+# the disc sums are 709 products of grey levels and integer offsets, each
+# package in its own order: angles agree to f32 rounding
+ANGLE_ATOL = 1e-5
+
+
+def _angle_gap(a, b):
+    d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    return np.minimum(d, 2 * np.pi - d)
+
+
+@pytest.mark.parametrize("case", ["right", "below", "maps", "rotation",
+                                  "rotated", "distinct"])
+def test_compute_orientations(case):
+    img, uv = _orientation_inputs(case)
+    got = orb.compute_orientations(torch.from_numpy(img), torch.from_numpy(uv))
+    want = jorb.compute_orientations(jnp.asarray(img), jnp.asarray(uv))
+    assert got.shape == (len(uv),) and got.dtype == torch.float32
+    assert _angle_gap(tnp(got), want).max() < ANGLE_ATOL
+    # the extractor's dense-map route gives the same angles (the reference's
+    # own bound between its two routes)
+    m10, m01 = orb.orientation_moment_maps(torch.from_numpy(img))
+    dense = orb.orientations_from_maps(m10, m01, torch.from_numpy(uv))
+    assert _angle_gap(tnp(got), tnp(dense)).max() < 1e-3
+    if case == "right":
+        assert abs(float(got[0])) < 0.1
+    if case == "below":
+        assert abs(float(got[0]) - np.pi / 2) < 0.1
+
+
+def test_fast_score_map_and_blur_under_reference_names():
+    """The plain per-pixel functions, the kernel's twins, under the names of
+    the reference's ops/orb.py."""
+    assert orb.fast_score_map is kernels.fast_score_map
+    assert orb.gaussian_blur7 is kernels.gaussian_blur7
+    img, _ = _orientation_inputs("maps")
+    score = orb.fast_score_map(torch.from_numpy(img), 20.0, 7.0)
+    want = np.asarray(jorb.fast_score_map(jnp.asarray(img), 20.0, 7.0))
+    np.testing.assert_array_equal(tnp(score), want)
+    assert (want > 1e4).any() and ((want > 0) & (want < 1e4)).any()
+    blur = orb.gaussian_blur7(torch.from_numpy(img))
+    np.testing.assert_allclose(tnp(blur),
+                               np.asarray(jorb.gaussian_blur7(jnp.asarray(
+                                   img))), atol=1e-4)
+
+
+def test_features_capacity():
+    img, _ = _orientation_inputs("distinct")
+    ex = orb.OrbExtractor(n_features=300, n_levels=3)
+    jex = jorb.OrbExtractor(n_features=300, n_levels=3, use_pallas=False)
+    feats, jfeats = ex(torch.from_numpy(img)), jex(jnp.asarray(img))
+    assert feats.capacity == jfeats.capacity == ex.capacity == 300
+    assert isinstance(feats.capacity, int)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_search_windowed_extra_mask(masked):
+    rng = np.random.RandomState(12)
+    na, nb = 48, 64
+    a = rng.randint(0, 256, (na, 32)).astype(np.uint8)
+    b = rng.randint(0, 256, (nb, 32)).astype(np.uint8)
+    b[:na:2] = a[::2] ^ (rng.rand(na // 2, 32) < 0.05).astype(np.uint8)
+    uv_a = rng.uniform(0, 200, (na, 2)).astype(np.float32)
+    uv_b = np.concatenate([uv_a + rng.normal(0, 2, (na, 2)),
+                           rng.uniform(0, 200, (nb - na, 2))]).astype(
+        np.float32)
+    va, vb = rng.rand(na) > 0.1, rng.rand(nb) > 0.1
+    extra = rng.rand(na, nb) > 0.3 if masked else None
+    args = (a, b, uv_a, uv_b, va, vb)
+    idx, dist = matching.search_windowed(
+        *(matching.unpack_desc(torch.from_numpy(x)) for x in args[:2]),
+        *(torch.from_numpy(x) for x in args[2:]), radius=20.0,
+        extra_mask=None if extra is None else torch.from_numpy(extra))
+    jidx, jdist = jmatch.search_windowed(
+        *(jmatch.unpack_desc(jnp.asarray(x)) for x in args[:2]),
+        *(jnp.asarray(x) for x in args[2:]), radius=20.0,
+        extra_mask=None if extra is None else jnp.asarray(extra))
+    np.testing.assert_array_equal(tnp(idx), np.asarray(jidx))
+    np.testing.assert_array_equal(tnp(dist), np.asarray(jdist))
+    plain, _ = matching.search_windowed(
+        *(matching.unpack_desc(torch.from_numpy(x)) for x in args[:2]),
+        *(torch.from_numpy(x) for x in args[2:]), radius=20.0)
+    assert (tnp(plain) >= 0).sum() >= 10
+    if masked:                                # the mask takes matches away
+        assert not torch.equal(idx, plain)
+        hit = tnp(idx) >= 0
+        assert extra[np.nonzero(hit)[0], tnp(idx)[hit]].all()
+
+
+@pytest.mark.parametrize("n_levels", [4, 8])
+def test_stereo_depth_without_extractor(n_levels):
+    """No extractor given: one with the left features' capacity and the
+    pyramid asked for, built for the call in both packages."""
+    scene = synthetic.SyntheticScene(n_points=400, seed=3, width=W, height=H,
+                                     fx=FX, fy=FY, cx=CX_, cy=CY_)
+    img_l, img_r = _stereo_pair(scene, np.eye(3, dtype=np.float32),
+                                np.zeros(3, np.float32))
+    il, ir = (jnp.asarray(x, jnp.float32) for x in (img_l, img_r))
+    fl = jorb.OrbExtractor(n_features=600, n_levels=n_levels,
+                           use_pallas=False)(il)
+    cam_j = jcam.Camera.create(fx=FX, fy=FY, cx=CX_, cy=CY_, bf=BF, width=W,
+                               height=H)
+    kw = {} if n_levels == 8 else dict(n_levels=n_levels)
+    d_j = np.asarray(jstereo.stereo_depth_for_features(cam_j, il, ir, fl,
+                                                       **kw))
+    cam_t = convert.camera_from_numpy(jnp_dict(cam_j), "cpu")
+    fl_t = convert.features_from_numpy(jnp_dict(fl), "cpu")
+    tl, tr = torch.from_numpy(img_l).float(), torch.from_numpy(img_r).float()
+    d_t = tnp(stereo.stereo_depth_for_features(cam_t, tl, tr, fl_t, **kw))
+    vj, vt = d_j > 0, d_t > 0
+    assert vj.sum() > 100
+    assert (vj == vt).mean() >= VALID_AGREE, (vj != vt).sum()
+    np.testing.assert_allclose(d_t[vj & vt], d_j[vj & vt], rtol=DEPTH_RTOL)
+    # the same as with the extractor the reference builds, given explicitly
+    ex = orb.OrbExtractor(n_features=fl_t.capacity, n_levels=n_levels)
+    np.testing.assert_array_equal(d_t, tnp(stereo.stereo_depth_for_features(
+        cam_t, tl, tr, fl_t, extractor=ex)))
+    assert not hasattr(stereo.stereo_depth_for_features, "_cache")
+
+
+def test_fullmap_search_and_optimize():
+    """The full-map search and the rigid pose LM from a pose 3 cm off, on
+    the grid map of `synthetic.deformed_grid_map` at rest, the frame seeing
+    it undeformed and unbound."""
+    a = synthetic.deformed_grid_map(n_grid=9, defmag=0.0, tang=0.0, seed=0,
+                                    noise=0.3, max_keyframes=8,
+                                    max_features=128, max_points=256)
+    pose7 = a["pose7_true"].copy()
+    pose7[4:] += np.float32([0.03, -0.02, 0.01])
+    frame = dict(a["frame"], pose7=pose7)
+    fr_j, n_j = jreloc.fullmap_search_and_optimize(
+        jcam.Camera.create(**DEFORMED_CAM), JTrackConfig(n_levels=2),
+        as_jax(JMap, a["map"]), as_jax(JFrame, frame), 10.0)
+    fr_t, n_t = relocalization.fullmap_search_and_optimize(
+        camera.Camera.create(**DEFORMED_CAM), TrackConfig(n_levels=2),
+        convert.map_state_from_numpy(a["map"], "cpu"),
+        convert.frame_from_numpy(frame, "cpu"), 10.0)
+    assert int(n_t) == int(n_j) >= 0.8 * a["n"]
+    np.testing.assert_array_equal(tnp(fr_t.point_ids),
+                                  np.asarray(fr_j.point_ids))
+    angle, dist = _pose_difference(tnp(fr_t.pose7), fr_j.pose7)
+    assert angle < LM_ROT_MAX and dist < LM_CENTRE_MAX, (angle, dist)
+    # it moved toward the true pose
+    assert (_pose_difference(tnp(fr_t.pose7), a["pose7_true"])[1]
+            < 0.6 * _pose_difference(pose7, a["pose7_true"])[1])
+    # a Hamming bound below every descriptor distance binds nothing
+    _, none = relocalization.fullmap_search_and_optimize(
+        camera.Camera.create(**DEFORMED_CAM), TrackConfig(n_levels=2),
+        convert.map_state_from_numpy(a["map"], "cpu"),
+        convert.frame_from_numpy(frame, "cpu"), 10.0, max_hamming=-1)
+    assert int(none) == 0
+
+
+def test_circle_trajectory_jitter():
+    plain, c0 = synthetic.circle_trajectory(8, 2.0, 1.1)
+    again, _ = synthetic.circle_trajectory(8, 2.0, 1.1, seed=4, jitter=0.0)
+    for (R, t), (R2, t2) in zip(plain, again):
+        np.testing.assert_array_equal(R, R2)
+        np.testing.assert_array_equal(t, t2)
+    shaken, c1 = synthetic.circle_trajectory(8, 2.0, 1.1, seed=4,
+                                             jitter=0.02)
+    want, wc = jsyn.circle_trajectory(8, 2.0, 1.1, seed=4, jitter=0.02)
     np.testing.assert_array_equal(c0, c1)             # centres stay
     np.testing.assert_array_equal(c1, wc)
     for (R, t), (Rw, tw) in zip(shaken, want):

@@ -28,7 +28,6 @@ from orb_slam2_e_tpu_torch.models import relocalization as TRL
 from orb_slam2_e_tpu_torch.models.system import (BUNDLED_VOCAB, SlamSystem,
                                                  SystemConfig, Sensor)
 from orb_slam2_e_tpu_torch.ops import bow as tbow
-from orb_slam2_e_tpu_torch.ops.matching import TH_RELOC
 from orb_slam2_e_tpu_torch.ops import pnp as tpnp
 from orb_slam2_e_tpu_torch.ops.camera import Camera
 from orb_slam2_e_tpu_torch.utils import convert
@@ -420,8 +419,7 @@ def test_candidates_and_fullmap_search_on_reference_map(reloc_run):
     # rigid pose LM
     fj3, nj3 = JRL.fullmap_search_and_optimize(sj.cam, sj.track_cfg, sj.map,
                                                fj2, 10.0)
-    ft3, _ = TRL.fullmap_search(cam_t, tcfg, tmap, ft2, 10.0, TH_RELOC)
-    ft3, nt3 = TRL.optimize_frame_pose(cam_t, tcfg, tmap, ft3)
+    ft3, nt3 = TRL.fullmap_search_and_optimize(cam_t, tcfg, tmap, ft2, 10.0)
     assert int(nt3) == int(nj3) >= TRL.RELOC_GOOD
     np.testing.assert_array_equal(tnp(ft3.point_ids),
                                   np.asarray(fj3.point_ids))
