@@ -2,17 +2,24 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernel (and, beside it, the earlier one-level
-kernel as a timing baseline) from the sources in this checkout. Holds the kernel
+Builds the hand-written CUDA kernels (and, beside them, the earlier
+one-level kernel as a timing baseline) from the sources in this checkout,
+one nvcc process per source, all at once. Holds the FAST/NMS/blur kernel
 against its plain torch twin on the card: the whole 8-level pyramid of a
 640x480 frame in one launch, and two odd shapes through the one-level
 entry. Times it by replaying a CUDA graph of back-to-back launches, at level
 0 and for the pyramid, beside the baseline, the wrapper's call rate, the
-plain version and the card's bound for the same work. Then drives
+plain version and the card's bound for the same work. Holds the
+segment-sum kernel (`csrc/segment_sum.cu`, the port's float scatter-adds in
+one fixed order) bit for bit against `index_add_` on CPU copies of the
+same inputs at the shapes of the local and global BA, the pose graph and
+the FEM assembly, and times it by replay beside `index_add_`,
+`index_put_(accumulate=True)` and its bound. Then drives
 `SlamSystem` on the card through eight phases on synthetic 640x480 scenes
 (8 levels, 1000 features), the parallel package through a ninth, the
 real-texture proxy sequences through a tenth, the pipelined frame loop
-through an eleventh and the KITTI and EuRoC entry points through a twelfth,
+through an eleventh, the KITTI and EuRoC entry points through a twelfth and
+the run-to-run equality of the float sums through a thirteenth,
 each through the entry point a user calls, with
 everything, loop closing included, at its default unless said. Phases 1-7
 run the synchronous frame loop (`pipeline=False`); the examples of phases
@@ -89,7 +96,15 @@ run the synchronous frame loop (`pipeline=False`); the examples of phases
    runs `stereo_kitti`, `mono_kitti`, `stereo_euroc` (rectified),
    `mono_euroc` and `stream_mono` on them with their stages timed, at the
    e2e gates where the reference meets them on the same files (KE_REF),
-   else at the reference's own result.
+   else at the reference's own result;
+13. determinism: from phase 1's map, the local BA of its last keyframe
+   (`ba.ba_solve`), a global-BA chunk (`ba.ba_pcg_chunk`), both pose-graph
+   solvers on the essential graph of a closure from the last keyframe to
+   slot 0 (8 LM iterations each), phase 7's `deformable._ba_solve_nr` and
+   `search_and_fuse` on
+   the map corrected for that closure, each twice in torch's default mode:
+   the two outputs must be equal bit for bit. The local BA and the chunk
+   are then timed with the kernel and with `index_add_` in its place.
 
 Each phase checks tracking, trajectory error, its own gates and that every
 extraction went through the kernel in exactly one launch (the launch count
@@ -97,20 +112,23 @@ is zeroed before the phase and read after it; in phase 9 one launch per
 step for all lanes; in phase 11 the frames of the two loops' comparison are
 counted apart; in phase 12 two per stereo frame). Tracked frames are
 counted from the trajectory after `get_trajectory()`, which settles the
-pipelined loop's verdicts. Prints
+pipelined loop's verdicts. Every phase launches the segment-sum kernel (a
+local BA at least; its count is zeroed before the phase and read after).
+Prints
 per-stage median ms, each phase's seconds and the total, the card's name
-and power limit, a JSON line describing the kernel, and as its last line
+and power limit, a JSON line describing the kernels, and as its last line
 {"ok": true, "device": {...}}. Exits non-zero, without that line, when
 there is no CUDA device or any phase fails. Imports no JAX.
 
     python3 chip_smoke.py --kernel-only
 
-stops after the kernel's checks and timings.
+stops after the kernels' checks and timings.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
 import os
 import statistics
@@ -237,9 +255,18 @@ PAR_FLIP_SHARE = 1e-3
 # Measured on one H100 (NVIDIA H100 80GB HBM3, 700 W): one inlier apart on
 # one lane step in two runs (lane 2 step 7: 700 batched / 701 single; lane 0
 # step 2: 638 / 639, the same in three repeats on that run's map), none in
-# the others; the map moves from run to run with the card's atomic adds in
-# the BA. A count compares tallies: an inlier gained and one lost in the
-# same step read 0.
+# the others; the map then moved from run to run with the card's atomic
+# adds in the BA. With the BA's sums in one order the map is the same in
+# every run, and three runs (same card and limit) read the same two lane
+# steps: lane 2 step 11, 570 batched / 569 single; lane 3 step 12, 569 /
+# 570. The map is not the cause. Each flipped lane step is also taken
+# through the tracker's torch.vmap as a batch of one lane on the single
+# step's inputs (`vmap_one_lane`), whose count the run prints beside the
+# two: it read the single counts (569, 570) in a run on the same card, so
+# the flip follows the lane's own inputs (its pose up to 7e-5 from the
+# single chain's) or the 8-lane width, which that probe does not separate.
+# A count compares tallies: an inlier gained and one lost in the same step
+# read 0.
 PAR_INLIERS_APART = 1
 PAR_INLIER_STEPS = 2
 # batched vs one-image resize of a level (0..255 grey): a few float32 ulps
@@ -249,6 +276,40 @@ DIST_POSE_ATOL, DIST_POINT_ATOL = 5e-4, 5e-3
 KERNEL_SOURCE = "orb_slam2_e_tpu_torch/csrc/fast_nms_blur.cu"
 BASELINE_SOURCE = "orb_slam2_e_tpu_torch/csrc/fast_nms_blur_v1.cu"
 REPLACES = "orb_slam2_e_tpu/ops/pallas_kernels.py:148"
+# The deterministic segment sum under the port's float scatter-adds. No TPU
+# kernel: it replaces the atomics of `index_add_`; the reference's sums are
+# XLA scatters such as this `jax.ops.segment_sum` of the local BA.
+SEGMENT_SUM_SOURCE = "orb_slam2_e_tpu_torch/csrc/segment_sum.cu"
+SEGMENT_SUM_REPLACES = "orb_slam2_e_tpu/ops/ba.py:132"
+# its inputs at the main path's shapes, drawn from a seed: (name, rows,
+# segments, columns, live rows (the rest masked: the padding of a fixed
+# capacity), segments the live rows fall into, live rows sorted). Local BA
+# (MappingConfig: 4096 points, 16 + 16 cameras, 12288 observations, ~6000
+# live on the orbit's maps); global BA (gba_problem: 131072 observation
+# slots, SystemConfig's 256 keyframe and 24576 landmark slots; the loop
+# phase's map: 56 keyframes, ~5400 landmarks, ~30000 observations); the
+# pose graph of 256 keyframes (2305 edge slots: tree, 4K covisibility, 4K
+# loop, the new one); the FEM assembly (NRConfig: 4096 elements of 8 node
+# slots over 4096 nodes); then a duplicate-heavy and an empty-and-masked
+# case
+SEGMENT_CASES = [
+    ("local BA Hpp|bp", 12288, 4096, 12, 6000, 1500, True),
+    ("local BA Schur buffer Z", 12288, 4096 * 32, 18, 6000, 6000, True),
+    ("global BA Hcc", 131072, 256, 36, 30000, 56, True),
+    ("global BA S x, cameras", 131072, 256, 3, 30000, 56, True),
+    ("global BA S x, points", 131072, 24576, 3, 30000, 5400, False),
+    ("pose graph H", 4 * 2305, 256 * 256, 49, 4 * 160, 400, False),
+    ("pose graph g", 2 * 2305, 256, 7, 2 * 160, 60, False),
+    ("FEM assembly", 4096 * 8, 4096, 3, 9000, 1200, False),
+    ("duplicate-heavy", 100000, 3, 6, 100000, 3, False),
+    ("empty and masked", 2000, 500, 5, 1400, 120, False),
+]
+# the record's headline case: the local BA's largest sum, once per LM
+# iteration of every keyframe's mapping pass
+SEGMENT_HEADLINE = "local BA Schur buffer Z"
+# LM iterations of each pose-graph solve in the determinism phase (the
+# closure's 20 take ~2.3 s a solve at 256 keyframe slots on the card)
+DET_POSE_GRAPH_ITERS = 8
 
 # The card's bound for the kernel's work. Bytes: each pixel read once (f32)
 # and written twice. Operations per pixel, none of them a fused multiply-add
@@ -465,23 +526,31 @@ def time_kernels(levels, baseline):
     return {key: min(pair) for key, pair in times.items()}
 
 
-def check_kernel(image0: np.ndarray):
+def build_kernels():
+    """Every kernel source of the checkout through nvcc, all at once:
+    {source: (library path, what ptxas reported)}."""
+    from orb_slam2_e_tpu_torch.ops import kernels, scatter
+    here = os.path.dirname(os.path.abspath(__file__))
+    sources = (KERNEL_SOURCE, BASELINE_SOURCE, SEGMENT_SUM_SOURCE)
+    t0 = time.perf_counter()
+    built = kernels.compile_sources([os.path.join(here, src)
+                                     for src in sources])
+    kernels.build()
+    scatter._segment_sum_fn()
+    print(f"kernel build ({len(sources)} sources at once): "
+          f"{time.perf_counter() - t0:.2f} s "
+          f"(nvcc {' '.join(kernels.NVCC_FLAGS)})")
+    for src, (_, log) in zip(sources, built):
+        print(f"{src}:\n{log.strip()}")
+    return dict(zip(sources, built))
+
+
+def check_kernel(image0: np.ndarray, built):
     """Kernel vs plain twin on the card: the frame's whole pyramid in one
     launch, odd shapes through the one-level entry, the baseline kernel
     level by level; then the timings. Returns the kernel's JSON record."""
     from orb_slam2_e_tpu_torch.ops import kernels, orb
-    here = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    (_, log), (baseline_so, baseline_log) = kernels.compile_sources(
-        [os.path.join(here, KERNEL_SOURCE),
-         os.path.join(here, BASELINE_SOURCE)])
-    kernels.build()
-    print(f"kernel build (both sources at once): "
-          f"{time.perf_counter() - t0:.2f} s "
-          f"(nvcc {' '.join(kernels.NVCC_FLAGS)})")
-    print(log.strip())
-    print(baseline_log.strip())
-    baseline = load_baseline(baseline_so)
+    baseline = load_baseline(built[BASELINE_SOURCE][0])
 
     ex = orb.OrbExtractor()
     img0 = torch.as_tensor(image0, device="cuda").to(torch.float32)
@@ -559,6 +628,110 @@ def check_kernel(image0: np.ndarray):
     return record
 
 
+def segment_inputs(case, seed=0):
+    """(idx (N,) int64, vals (N, D) float32) of a SEGMENT_CASES entry, as
+    numpy: values of magnitudes 1e-3..1e3, so that the order of the adds
+    shows in the bits; masked rows carry idx == n and zeros."""
+    _, rows, n, cols, live, drawn, is_sorted = case
+    rng = np.random.RandomState(seed)
+    keys = rng.choice(n, size=drawn, replace=False)[
+        rng.randint(0, drawn, live)]
+    idx = np.full(rows, n, np.int64)
+    if is_sorted:
+        idx[:live] = np.sort(keys)
+    else:
+        idx[rng.choice(rows, size=live, replace=False)] = keys
+    vals = (rng.standard_normal((rows, cols))
+            * 10.0 ** rng.uniform(-3, 3, (rows, 1))).astype(np.float32)
+    vals[idx == n] = 0.0
+    return idx, vals
+
+
+def segment_bound_ms(n, cols, live):
+    """The least ms the card could take for one segment sum: (bound, what
+    binds). Bytes: the live rows' values and permutation entries read once,
+    the n + 1 offsets read once, the (n, cols) output written once;
+    operations: one float add per live value."""
+    moved = live * cols * 4 + live * 8 + (n + 1) * 8 + n * cols * 4
+    by_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    by_ops = live * cols / PEAK_F32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def check_segment_sum(built):
+    """The segment-sum kernel against its plain version (`index_add_` on CPU
+    copies of the same inputs), bit for bit, at every SEGMENT_CASES shape,
+    with the plan built on the card; then its replay time beside `index_add_`
+    (atomics) and the plain version on the card, the time of
+    `index_put_(accumulate=True)` by CUDA events around 20 calls (it reads
+    the index's range on the host, so a graph cannot hold it), the plan's
+    time and the bound. Returns the kernel's record."""
+    from orb_slam2_e_tpu_torch.ops import scatter
+    cases, max_err = {}, 0.0
+    for case in SEGMENT_CASES:
+        name, rows, n, cols, live, _, _ = case
+        idx_np, vals_np = segment_inputs(case)
+        want = scatter.segment_sum_plain(n, torch.from_numpy(idx_np),
+                                         torch.from_numpy(vals_np))
+        idx = torch.from_numpy(idx_np).cuda()
+        vals = torch.from_numpy(vals_np).cuda()
+        plan = scatter.segment_plan(idx, n)
+        before = scatter.segment_sum.launches
+        got = scatter.segment_sum(n, idx, vals, plan).cpu()
+        expect(scatter.segment_sum.launches == before + 1,
+               f"segment_sum {name}: not one launch")
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        expect(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+               f"segment_sum {name} differs from the plain version by {err}")
+        out = torch.zeros((n + 1, cols), device="cuda")
+        twice = [torch.zeros((n + 1, cols), device="cuda").index_add_(
+            0, idx, vals) for _ in range(2)]
+        atomics_repeat = torch.equal(twice[0], twice[1])
+        runs = {}
+        for who, enqueue in (
+                ("kernel", lambda i: scatter.segment_sum(n, idx, vals, plan)),
+                ("index_add_", lambda i: out.index_add_(0, idx, vals)),
+                ("plain", lambda i: scatter.segment_sum_plain(n, idx, vals)),
+                ("kernel", lambda i: scatter.segment_sum(n, idx, vals,
+                                                         plan))):
+            runs.setdefault(who, []).append(replay_ms(enqueue, n=20,
+                                                      replays=9))
+        bound, by = segment_bound_ms(n, cols, live)
+        r = {"rows": rows, "segments": n, "columns": cols, "live": live,
+             "kernel_ms": min(runs["kernel"]),
+             "kernel_ms_both": runs["kernel"],
+             "index_add_ms": runs["index_add_"][0],
+             "index_put_accumulate_ms": time_ms(
+                 lambda: out.index_put_((idx,), vals, accumulate=True),
+                 n=20, rounds=3),
+             "plain_ms": runs["plain"][0],
+             "plan_ms": time_ms(lambda: scatter.segment_plan(idx, n), n=20,
+                                rounds=3),
+             "bound_ms": bound, "bound_by": by,
+             "index_add_repeats": atomics_repeat}
+        cases[name] = r
+        print(f"segment_sum {name}: {rows} rows ({live} live) into {n} x "
+              f"{cols}, bit-equal to index_add_ on the CPU; replay: kernel "
+              f"{r['kernel_ms']:.5f} ms ({runs['kernel'][0]:.5f} / "
+              f"{runs['kernel'][1]:.5f}), index_add_ {r['index_add_ms']:.5f}"
+              f", plain {r['plain_ms']:.5f}; events: index_put_(accumulate)"
+              f" {r['index_put_accumulate_ms']:.4f}, plan "
+              f"{r['plan_ms']:.4f} ms; bound {bound:.5f} ms by {by} "
+              f"({bound / r['kernel_ms']:.1%} reached); index_add_ twice "
+              f"bit-equal: {atomics_repeat}")
+    head = cases[SEGMENT_HEADLINE]
+    return {"name": "segment_sum", "route": "cuda",
+            "source": SEGMENT_SUM_SOURCE, "replaces": SEGMENT_SUM_REPLACES,
+            "launches": 0, "max_abs_err": max_err, "ms": head["kernel_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["index_add_ms"],
+            "index_put_accumulate_ms": head["index_put_accumulate_ms"],
+            "headline_case": SEGMENT_HEADLINE, "cases": cases,
+            "build_log": built[SEGMENT_SUM_SOURCE][1].strip()}
+
+
 # (stage, method of SlamSystem) pairs timed by `instrument`; the pipelined
 # loop's stages are `super-step` (extraction, tracking, the keyframe
 # decision and a queued insertion), its `insert+map` and `drain`
@@ -626,7 +799,7 @@ def drive(name, slam, inputs, centers, with_scale, first_frame=0,
     verdicts (a pose it returned may be revoked there). Returns a
     summary."""
     from orb_slam2_e_tpu_torch.models.system import Sensor
-    from orb_slam2_e_tpu_torch.ops import kernels, lie
+    from orb_slam2_e_tpu_torch.ops import kernels, lie, scatter
     from orb_slam2_e_tpu_torch.utils.trajectory import ate_rmse
     if stage_ms is None:
         stage_ms = instrument(slam)
@@ -637,6 +810,7 @@ def drive(name, slam, inputs, centers, with_scale, first_frame=0,
         slam.sensor]
 
     kernels.fast_nms_blur.launches = 0
+    seg_before = scatter.segment_sum.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     frame_ms, vo_frames = {"chunk": [], "plain": []}, []
@@ -657,6 +831,7 @@ def drive(name, slam, inputs, centers, with_scale, first_frame=0,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.fast_nms_blur.launches
+    seg_launches = scatter.segment_sum.launches - seg_before
 
     entries = [p7 for _, p7 in slam.trajectory[-len(inputs):]]
     if len(entries) != len(inputs):
@@ -693,7 +868,15 @@ def drive(name, slam, inputs, centers, with_scale, first_frame=0,
     if events["loops_closed"]:
         print(f"[{name}] loop closed behind frame {events['loops_closed']}, "
               f"global BA merged behind frame {events['gba_completed']}")
-    print(f"[{name}] fast_nms_blur launches: {launches}")
+    digest = hashlib.sha256(b"".join(
+        x.cpu().numpy().tobytes() for x in (slam.map.kf_pose7,
+                                            slam.map.lm_xyz,
+                                            slam.map.lm_valid))).hexdigest()
+    print(f"[{name}] map digest (keyframe poses, landmarks, validity): "
+          f"{digest[:16]}")
+    print(f"[{name}] fast_nms_blur launches: {launches}; segment_sum "
+          f"launches: {seg_launches} ({seg_launches / len(inputs):.1f} per "
+          f"frame)")
     return {"tracked": tracked, "ate": ate, "launches": launches,
             "vo_frames": vo_frames, "stage_ms": stage_ms}
 
@@ -1090,6 +1273,7 @@ def run_deform_ladder(el_type, tmp):
         print(f"[{name}] {key}: {ms:.2f} ms")
     for col in ("timeR_S1", "timeNR_S1"):
         print(f"[{name}] {col} {float(row[col]) * 1e3:.2f} ms (first call)")
+    return seen["_ba_solve_nr"][0]
 
 
 def surface_scene():
@@ -1198,7 +1382,9 @@ def run_deform_workflow(tmp):
 def run_deform():
     """The deformable mode on the card: the dual optimization at full
     width for both element types (no extraction, so no launch), then the
-    save / load / relocalize workflow on a deforming surface."""
+    save / load / relocalize workflow on a deforming surface. Returns the
+    workflow's launches and the arguments of the prisms' first
+    `_ba_solve_nr`."""
     import tempfile
     from orb_slam2_e_tpu_torch.ops import geometry, kernels
     t0 = time.perf_counter()
@@ -1207,11 +1393,10 @@ def run_deform():
           f"(g++ {' '.join(geometry.GXX_FLAGS)})")
     with tempfile.TemporaryDirectory() as tmp:
         kernels.fast_nms_blur.launches = 0
-        for el_type in DEFORM_GRIDS:
-            run_deform_ladder(el_type, tmp)
+        nr_args = [run_deform_ladder(el_type, tmp) for el_type in DEFORM_GRIDS]
         expect(kernels.fast_nms_blur.launches == 0,
                "deform-A extracted a frame")
-        return run_deform_workflow(tmp)
+        return run_deform_workflow(tmp), nr_args[0]
 
 
 DISK_SETTINGS = f"""%YAML:1.0
@@ -1417,6 +1602,20 @@ def _lane_feats(feats, b):
     return type(feats)(*(v[b] for v in feats))
 
 
+def vmap_one_lane(bt, state, feats, b, last, vel, have_vel, refs):
+    """The inliers of one single-lane step taken through the batched
+    tracker's `torch.vmap` as a batch of one lane: the single step's own
+    inputs (map, last frame, velocity) and lane b of the batch's features.
+    Beside the batched and the single count it tells the vmapped
+    computation from the lane's inputs."""
+    from orb_slam2_e_tpu_torch.utils.convert import stack_lanes
+    flags = bt._lanes(
+        stack_lanes([state]), type(feats)(*(v[b:b + 1] for v in feats)),
+        stack_lanes([last]), vel[None],
+        torch.tensor([have_vel], device=vel.device), refs[b:b + 1])[3]
+    return int(flags[0, 1])
+
+
 def time_batch_kernel(lanes):
     """The 64-level launch of the 8 lanes' pyramids against the plain twin
     lane by lane, then its replay time beside 8 one-pyramid launches and
@@ -1566,6 +1765,7 @@ def run_parallel(orbit, rgbd_state):
             frame = frame_from_features(slam.cam,
                                         _lane_feats(feats_seen[k], b))
             counts_s = (state.lm_visible, state.lm_found)
+            before = (state, last, vel, have_vel)
             state, last, vel, flags = T.track_frame_fused(
                 slam.cam, slam.track_cfg, state, frame, last, vel, have_vel,
                 ref_kf)
@@ -1576,8 +1776,11 @@ def run_parallel(orbit, rgbd_state):
                    f"at step {k}: batched {bool(ok[b])}, single {flags}")
             apart = abs(int(n_in[b]) - flags[1])
             if apart:
+                one = vmap_one_lane(bt, before[0], feats_seen[k], b,
+                                    *before[1:], refs)
                 print(f"[parallel] lane {b} step {k}: {int(n_in[b])} inliers "
-                      f"batched, {flags[1]} single")
+                      f"batched, {flags[1]} single, {one} single under "
+                      f"torch.vmap as a batch of one")
             inl_apart = max(inl_apart, apart)
             inl_steps += apart > 0
             pose_diff = max(float((pose7[b] - last.pose7).abs().max()),
@@ -1738,8 +1941,9 @@ def run_parallel(orbit, rgbd_state):
             finally:
                 torch.use_deterministic_algorithms(False)
             dp, dx = diff(shard, single)
-            # the card's default atomic adds: three solves of each kind,
-            # interleaved, every pair compared within and across the kinds
+            # torch's default mode (the sums through the segment-sum
+            # kernel): three solves of each kind, interleaved, every pair
+            # compared within and across the kinds
             runs = {False: [], True: []}
             for _ in range(3):
                 for sharded in (False, True):
@@ -1748,7 +1952,7 @@ def run_parallel(orbit, rgbd_state):
             shard_ms = min(ms for _, ms in runs[True])
 
             def spread(pairs):
-                return sorted(diff(a, b)[1] for a, b in pairs)
+                return sorted(max(diff(a, b)) for a, b in pairs)
 
             s_runs, d_runs = ([r for r, _ in runs[k]] for k in (False, True))
             within_s = spread([(s_runs[i], s_runs[j]) for i in range(3)
@@ -1769,10 +1973,10 @@ def run_parallel(orbit, rgbd_state):
                   f"{prob.obs_valid.shape[0]} observation slots, clipped "
                   f"{int(clipped)}; 10 LM x 30 CG). Deterministic adds: "
                   f"sharded {det_shard_ms:.1f} ms, single {det_single_ms:.1f} "
-                  f"ms, max|diff| poses {dp:.3g}, points {dx:.3g}. The card's "
-                  f"atomic adds, best of 3 interleaved: sharded "
-                  f"{shard_ms:.1f} ms, single {single_ms:.1f} ms; points "
-                  f"max|diff| single vs single "
+                  f"ms, max|diff| poses {dp:.3g}, points {dx:.3g}. Default "
+                  f"mode, best of 3 interleaved: sharded "
+                  f"{shard_ms:.1f} ms, single {single_ms:.1f} ms; poses and "
+                  f"points max|diff| single vs single "
                   f"{[f'{v:.3g}' for v in within_s]}, sharded vs sharded "
                   f"{[f'{v:.3g}' for v in within_d]}, sharded vs single "
                   f"{[f'{v:.3g}' for v in across]}; the most spread point "
@@ -1782,6 +1986,13 @@ def run_parallel(orbit, rgbd_state):
                   f"{int(single.obs_inlier.sum())}")
             expect(dp <= DIST_POSE_ATOL and dx <= DIST_POINT_ATOL,
                    f"distributed BA differs: {dp}, {dx}")
+            # the same gate in the default mode, and no spread within a kind
+            dpa, dxa = diff(d_runs[0], s_runs[0])
+            expect(dpa <= DIST_POSE_ATOL and dxa <= DIST_POINT_ATOL,
+                   f"distributed BA differs in the default mode: {dpa}, "
+                   f"{dxa}")
+            expect(max(within_s + within_d) == 0.0, "distributed BA: two "
+                   "solves of one kind differ in the default mode")
             expect(shard.obs_inlier.shape == single.obs_inlier.shape,
                    "distributed BA: obs_inlier not gathered")
 
@@ -1805,6 +2016,152 @@ def run_parallel(orbit, rgbd_state):
             dist.destroy_process_group()
     expect("jax" not in sys.modules, "jax was imported")
     return launches, record
+
+
+def _leaves(x):
+    """The tensors of a result (nested tuples, NamedTuples, numbers)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [leaf for v in x for leaf in _leaves(v)]
+    if isinstance(x, (bool, int, float)):
+        return [torch.tensor(x)]
+    return []
+
+
+def _bit_diff(a, b):
+    """(bit-equal, max|diff| over the float leaves) of two results."""
+    equal, worst = True, 0.0
+    for x, y in zip(_leaves(a), _leaves(b), strict=True):
+        if x.dtype.is_floating_point:
+            equal &= torch.equal(x.view(torch.int32) if x.dtype ==
+                                 torch.float32 else x,
+                                 y.view(torch.int32) if y.dtype ==
+                                 torch.float32 else y)
+            worst = max(worst, float((x - y).abs().max()) if x.numel()
+                        else 0.0)
+        else:
+            equal &= torch.equal(x, y)
+    return equal, worst
+
+
+def run_determinism(rgbd_state, nr_args):
+    """The port's float sums repeat on the card. From the RGB-D phase's map,
+    each of these runs twice in torch's default (non-deterministic) mode,
+    and the two outputs must be equal bit for bit: `ba.ba_solve` on the
+    local BA problem of the last keyframe's mapping pass, `ba.ba_pcg_chunk`
+    on the map's global BA problem (the system's chunk), both pose-graph
+    solvers on the essential graph of a closure from the last keyframe to
+    slot 0 (DET_POSE_GRAPH_ITERS iterations),
+    `deformable._ba_solve_nr` on the deformable phase's prisms, and
+    `loop_closing.search_and_fuse` on the map corrected for that closure.
+    Then the local BA and the chunk are timed with the kernel and with
+    `index_add_` (atomics) in its place, in turns, and the atomic version's
+    two runs compared. Returns nothing; the segment sums launched count as
+    the phase's."""
+    from orb_slam2_e_tpu_torch.models import deformable as DEF
+    from orb_slam2_e_tpu_torch.models import local_mapping as LM
+    from orb_slam2_e_tpu_torch.models import loop_closing as LC
+    from orb_slam2_e_tpu_torch.ops import ba, lie, pose_graph as PG, scatter
+    slam, _, _ = rgbd_state
+    state, cam, cfg = slam.map, slam.cam, slam.cfg
+    dev = state.device
+    kf = slam.last_kf_slot
+    # the local BA problem as the last keyframe's mapping pass builds it
+    seen, solve = [], ba.ba_solve
+
+    def keep(c, prob, **kw):
+        seen.append((prob, kw))
+        return solve(c, prob, **kw)
+
+    ba.ba_solve = keep
+    try:
+        LM.local_ba(cam, slam.map_cfg, state, kf)
+    finally:
+        ba.ba_solve = solve
+    local_prob, local_kw = seen[0]
+    gprob, _ = LC.gba_problem(cam, state, cfg.scale_factor)
+    gsums = ba.obs_sums(gprob)
+    carry0 = ba.ba_pcg_carry_init(gprob)
+    # a closure from the last keyframe to slot 0, measured 2 cm off
+    cur = torch.tensor([kf], device=dev)
+    loop = torch.zeros((1,), dtype=torch.long, device=dev)
+    R, t = lie.pose7_unpack(state.kf_pose7)
+    R12, t12 = lie.se3_compose(R[kf], t[kf], *lie.se3_inverse(R[0], t[0]))
+    t12 = t12 + 0.02
+    one = torch.ones((), device=dev)
+    ei, ej, e_ok, _ = LC.essential_graph_edges(state, cur, loop)
+    sim8 = lie.sim8_pack(R, t, torch.ones_like(t[:, 0]))
+    meas = torch.cat([
+        PG.build_relative_measurements(sim8[ei[:-1].long()],
+                                       sim8[ej[:-1].long()]),
+        lie.sim8_pack(R12, t12, one)[None]])
+    fixed = torch.arange(state.K, device=dev) == 0
+    corrected = LC.correct_and_optimize_graph(state, kf, 0, R12, t12, one)[0]
+    n_obs = int(local_prob.obs_valid.sum())
+    print(f"[determinism] local BA: {local_prob.cam_pose7.shape[0]} cameras, "
+          f"{int(local_prob.point_valid.sum())} of "
+          f"{local_prob.points.shape[0]} points, {n_obs} of "
+          f"{local_prob.obs_valid.shape[0]} observations; global BA: "
+          f"{int(gprob.obs_valid.sum())} of {gprob.obs_valid.shape[0]} "
+          f"observations; essential graph {int(e_ok.sum())} of "
+          f"{e_ok.shape[0]} edges; NR BA {int(nr_args[1].obs_valid.sum())} "
+          f"observations")
+    calls = {
+        "ba.ba_solve": lambda: solve(cam, local_prob, **local_kw),
+        "ba.ba_pcg_chunk": lambda: ba.ba_pcg_chunk(
+            cam, gprob, carry0, n_outer=slam.GBA_ITERS_PER_CHUNK,
+            cg_iters=slam.GBA_CG_ITERS, sums=gsums),
+        "pose_graph.optimize_pose_graph": lambda: PG.optimize_pose_graph(
+            sim8, state.kf_valid, fixed, ei, ej, meas, e_ok,
+            n_iters=DET_POSE_GRAPH_ITERS),
+        "pose_graph.optimize_pose_graph_cg": lambda:
+            PG.optimize_pose_graph_cg(sim8, state.kf_valid, fixed, ei, ej,
+                                      meas, e_ok,
+                                      n_iters=DET_POSE_GRAPH_ITERS),
+        "deformable._ba_solve_nr": lambda: DEF._ba_solve_nr(*nr_args),
+        "loop_closing.search_and_fuse": lambda: LC.search_and_fuse(
+            cam, corrected, cur, loop, cfg.scale_factor, cfg.n_levels),
+    }
+    for name, fn in calls.items():
+        t0 = time.perf_counter()
+        a = fn()
+        b = fn()
+        torch.cuda.synchronize()
+        equal, worst = _bit_diff(a, b)
+        extra = (f", {int(a[1])} fused" if name.endswith("fuse") else "")
+        print(f"[determinism] {name} twice from one input: bit-equal "
+              f"{equal} (max|diff| {worst:.3g}){extra}; "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms for both")
+        expect(equal, f"determinism: {name} differs between two runs by "
+               f"{worst}")
+
+    # the kernel against index_add_'s atomics in its place, in turns
+    kernel_sum = scatter.segment_sum
+
+    def atomic_sum(n, idx, vals, plan=None):
+        return scatter.segment_sum_plain(n, idx, vals)
+
+    timed = {"ba.ba_solve": calls["ba.ba_solve"],
+             "ba.ba_pcg_chunk": calls["ba.ba_pcg_chunk"]}
+    ms = {}
+    for name, fn in timed.items():
+        for mode in ("index_add_", "kernel", "kernel", "index_add_"):
+            scatter.segment_sum = atomic_sum if mode == "index_add_" \
+                else kernel_sum
+            try:
+                ms.setdefault((name, mode), []).append(_host_ms(fn, 3))
+                if mode == "index_add_" and (name, "runs") not in ms:
+                    ms[(name, "runs")] = _bit_diff(fn(), fn())
+            finally:
+                scatter.segment_sum = kernel_sum
+        print(f"[determinism] {name} ms (median of 3, synchronized), "
+              f"index_add_ / kernel / kernel / index_add_: "
+              f"{ms[(name, 'index_add_')][0]:.2f} / "
+              f"{ms[(name, 'kernel')][0]:.2f} / {ms[(name, 'kernel')][1]:.2f}"
+              f" / {ms[(name, 'index_add_')][1]:.2f}; with index_add_ two "
+              f"runs bit-equal {ms[(name, 'runs')][0]}, max|diff| "
+              f"{ms[(name, 'runs')][1]:.3g}")
 
 
 def check_proxy_render():
@@ -2279,32 +2636,47 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     import orb_slam2_e_tpu_torch  # noqa: F401  (precision settings)
+    from orb_slam2_e_tpu_torch.ops import scatter
     scene, poses, centers = make_scene()
-    record = check_kernel(grey(scene, *poses[0]))
+    built = build_kernels()
+    record = check_kernel(grey(scene, *poses[0]), built)
+    seg_record = check_segment_sum(built)
     if sys.argv[1:] == ["--kernel-only"]:
-        print(json.dumps({"kernels": [record]}))
+        print(json.dumps({"kernels": [record, seg_record]}))
         return 0
     orbit = (scene, poses, centers)
+    seg_launches = {}
 
     def phase(fn, *args):
+        """fn(*args) with the segment sums it launches counted from 0: every
+        phase runs one of the float sums (a local BA at least)."""
+        scatter.segment_sum.launches = 0
         t0 = time.perf_counter()
         out = fn(*args)
-        print(f"{fn.__name__}: passed in {time.perf_counter() - t0:.1f} s")
+        n_seg = scatter.segment_sum.launches
+        print(f"{fn.__name__}: passed in {time.perf_counter() - t0:.1f} s; "
+              f"segment_sum launches {n_seg}")
+        expect(n_seg > 0, f"{fn.__name__}: no segment sum launched")
+        seg_launches[fn.__name__] = n_seg
         return out
 
     n_rgbd, rgbd_state = phase(run_rgbd, *orbit)
     record["launches"] = (
         n_rgbd + phase(run_mono, *orbit) + phase(run_stereo, *orbit)
         + phase(run_reloc, *orbit) + phase(run_loop)
-        + phase(run_loc, orbit, rgbd_state) + phase(run_deform)
-        + phase(run_disk, *orbit))
+        + phase(run_loc, orbit, rgbd_state))
+    n_deform, nr_args = phase(run_deform)
+    record["launches"] += n_deform + phase(run_disk, *orbit)
     n_par, par_record = phase(run_parallel, orbit, rgbd_state)
     record["launches"] += n_par + phase(run_proxy) + phase(run_pipeline,
                                                            orbit)
     n_ke, ke_record = phase(run_kitti_euroc)
     record["launches"] += n_ke
+    phase(run_determinism, rgbd_state, nr_args)
     record.update(par_record)
     record.update(ke_record)
+    seg_record["launches"] = sum(seg_launches.values())
+    seg_record["launches_by_phase"] = seg_launches
     # one launch per extraction: 30 + 20 + 2 x 10 + 25 on the orbit, 96
     # around the ring, 6 + 12 + 30 in localization-only mode, 20 + 20 on
     # the deforming surface (none in the deformable phase's part A), 12 + 20
@@ -2313,7 +2685,8 @@ def main() -> int:
     # one profiled step of each kind; 20 + 20 proxy frames through the
     # examples; 30 + 25 orbit frames through the pipelined loop; on the
     # KITTI and EuRoC proxies two per stereo frame and one per monocular
-    # frame: 2 + 1 + 2 + 1 + 1 per frame over the five examples
+    # frame: 2 + 1 + 2 + 1 + 1 per frame over the five examples; none in
+    # the determinism phase
     expect(record["launches"] == 75 + 2 * STEREO_FRAMES + LOOP_FRAMES
            + LOC_ORBIT_FRAMES
            + LOC_MAPPED + LOC_FRAMES + DEFORM_MAPPED + DEFORM_FRAMES
@@ -2326,7 +2699,7 @@ def main() -> int:
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card_line())
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, seg_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

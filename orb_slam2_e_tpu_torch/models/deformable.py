@@ -179,13 +179,16 @@ def pose_optimization_nr(cam: Camera, cfg: TrackConfig, nr: NRConfig,
     # searches that follow can rebind those features (the reference nulls
     # mvbOutlier entries after each dual stage, Tracking.cc:1990-1993). The
     # reference sends the rows it keeps to the out-of-range row F and drops
-    # them; the mask does the same here.
+    # them; the mask does the same here. Features bound to one landmark give
+    # it several optimized positions: the last row's wins, as in the
+    # reference's scatter on the CPU.
     frame = frame._replace(
         pose7=res.cam_pose7[0],
         point_ids=scatter.masked_set(frame.point_ids, rows, row_ok & ~inl,
                                      INVALID))
     state = state._replace(
-        lm_xyz=scatter.masked_set(state.lm_xyz, lm_ids, row_ok, res.points),
+        lm_xyz=scatter.masked_set_last(state.lm_xyz, lm_ids, row_ok,
+                                       res.points),
         lm_rigid=scatter.masked_set(state.lm_rigid, lm_ids, row_ok, 2))
     prop = None
     if nr.mode2:

@@ -280,7 +280,7 @@ def fuse_neighbors(cam: Camera, cfg: MappingConfig, state: MapState, kf):
     winner = torch.where(bindB, torch.where(p_obs >= q_obs, p, q), INVALID)
     pair_ok = (loser >= 0) & (winner >= 0)
     table = torch.arange(state.P, dtype=_I32, device=state.device)
-    table = scatter.masked_set(table, loser, pair_ok, winner)
+    table = scatter.masked_set_last(table, loser, pair_ok, winner)
     pt = state.kf_kp_point
     remapped = torch.where(pt >= 0, table[torch.where(pt >= 0, pt, 0).long()],
                            pt)

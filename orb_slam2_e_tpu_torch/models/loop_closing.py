@@ -453,7 +453,7 @@ def search_and_fuse(cam: Camera, state: MapState, kf_cur, kf_loop,
         # bound to another point: the loop point replaces it everywhere
         bindB = pair_ok & (q >= 0) & (q != p)
         loser = torch.where(bindB, q, INVALID)
-        table = scatter.masked_set(table0, loser, bindB, p)
+        table = scatter.masked_set_last(table0, loser, bindB, p)
         remapped = torch.where(
             pt >= 0, table[torch.where(pt >= 0, pt, 0).long()], pt)
         dead = scatter.mark(P, torch.where(bindB, loser, 0), bindB)

@@ -1071,6 +1071,7 @@ class SlamSystem:
         self._gba = {
             "prob": prob,
             "carry": ba_ops.ba_pcg_carry_init(prob),
+            "sums": ba_ops.obs_sums(prob),
             "done": 0,
             # the snapshot's identity, for the merge
             "kf_seq": self.map.kf_seq.clone(),
@@ -1087,7 +1088,8 @@ class SlamSystem:
             return
         g["carry"] = ba_ops.ba_pcg_chunk(
             self.cam, g["prob"], g["carry"],
-            n_outer=self.GBA_ITERS_PER_CHUNK, cg_iters=self.GBA_CG_ITERS)
+            n_outer=self.GBA_ITERS_PER_CHUNK, cg_iters=self.GBA_CG_ITERS,
+            sums=g["sums"])
         g["done"] += 1
         if g["done"] < self.GBA_CHUNKS:
             return

@@ -22,9 +22,14 @@ Arithmetic choices, matching the reference:
   exact in f32);
 - the seed gate's median averages the two middle values, as
   `jnp.nanmedian` does (`torch.nanmedian` would return the lower one);
-- point sums are `index_add_`: on the card its atomics add in a varying
-  order, so results agree with the reference within a tolerance, not bit
-  for bit.
+- point, Schur-buffer and PCG sums are `scatter.segment_sum` over plans
+  built once per solve: rows added in ascending order, as the reference's
+  `segment_sum` adds them on the CPU, on the card too (the kernel
+  `csrc/segment_sum.cu`), so a solve repeats bit for bit from run to run.
+  Invalid observations (the padding of a fixed capacity, weight 0) go to
+  the spare segment: their rows add exact zeros, which leave every sum as
+  it was, but they alias one point and one camera, whose segment would
+  otherwise walk all of them.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import lie
+from . import lie, scatter
 from .camera import Camera
 from .pose_opt import CHI2_MONO, CHI2_STEREO, huber_weight
 
@@ -106,10 +111,17 @@ def _weights(prob: BAProblem, r, behind, robust: bool, extra_mask=None):
     return w, chi2, cost, live
 
 
-def _build_normal_blocks(prob: BAProblem, r, Jc, Jp, w, C: int, P: int):
+def _sum_index(prob: BAProblem, key: torch.Tensor, n: int) -> torch.Tensor:
+    """The segment of each observation in a sum over `key` (< n): the spare
+    segment n where the observation is invalid."""
+    return torch.where(prob.obs_valid, key.long(), n)
+
+
+def _build_normal_blocks(prob: BAProblem, r, Jc, Jp, w, C: int, P: int,
+                         plan_p: scatter.SegmentPlan):
     """Per-observation products -> Hcc (C,6,6), bc (C,6), Hpp (P,3,3),
-    bp (P,3). Cameras through a (C, O) one-hot matmul, points through an
-    index_add over the point-sorted observations."""
+    bp (P,3). Cameras through a (C, O) one-hot matmul, points through a
+    segment sum (`plan_p`: the plan of `_sum_index(prob, obs_point, P)`)."""
     O = r.shape[0]
     wJc = Jc * w[:, None, None]
     wJp = Jp * w[:, None, None]
@@ -124,8 +136,8 @@ def _build_normal_blocks(prob: BAProblem, r, Jc, Jp, w, C: int, P: int):
     vals_p = torch.cat([
         torch.einsum('oij,oik->ojk', wJp, Jp).reshape(O, 9),
         torch.einsum('oij,oi->oj', wJp, r)], -1)
-    agg_p = torch.zeros((P, 12), dtype=r.dtype, device=r.device).index_add_(
-        0, prob.obs_point.long(), vals_p)
+    agg_p = scatter.segment_sum(P, _sum_index(prob, prob.obs_point, P),
+                                vals_p, plan_p)
     return Hcc, bc, agg_p[:, :9].reshape(P, 3, 3), agg_p[:, 9:]
 
 
@@ -185,10 +197,13 @@ def _spd_solve_cg(S, b, iters: int = 32):
 
 
 def _schur_solve_dense(prob: BAProblem, Hcc, bc, Hpp, bp, Jc, Jp, w,
-                       cam_free, lam):
+                       cam_free, lam,
+                       plan_z: scatter.SegmentPlan | None = None):
     """Marginalize points, solve the reduced camera system, back-substitute
-    (symmetric factored form of the reference). Returns (dxc (C,6),
-    dxp (P,3))."""
+    (symmetric factored form of the reference). `plan_z`: the plan of the
+    observations' (point, camera) keys, point * C + camera (None: the
+    segment sum builds it). Returns
+    (dxc (C,6), dxp (P,3))."""
     C = Hcc.shape[0]
     P = Hpp.shape[0]
     O = w.shape[0]
@@ -201,9 +216,9 @@ def _schur_solve_dense(prob: BAProblem, Hcc, bc, Hpp, bp, Jc, Jp, w,
     op = prob.obs_point.long()
     wJc = Jc * w[:, None, None]
     zvals = torch.einsum('oij,oik,okl->ojl', wJc, Jp, L[op])   # (O, 6, 3)
-    flat = op * C + prob.obs_cam.long()
-    Z = torch.zeros((P * C, 18), dtype=dt, device=dev).index_add_(
-        0, flat, zvals.reshape(O, 18)).reshape(P, C, 6, 3)
+    flat = _sum_index(prob, op * C + prob.obs_cam.long(), P * C)
+    Z = scatter.segment_sum(P * C, flat, zvals.reshape(O, 18),
+                            plan_z).reshape(P, C, 6, 3)
     A = Z.permute(1, 2, 0, 3).reshape(C * 6, P * 3)
     Ab = A.to(torch.bfloat16).to(dt)          # bf16 operands, f32 sums
     S_off = (Ab @ Ab.T).reshape(C, 6, C, 6).permute(0, 2, 1, 3)
@@ -266,6 +281,12 @@ def ba_solve(cam: Camera, prob: BAProblem, iters_phase1: int = 5,
         obs_inv_sigma2=prob.obs_inv_sigma2[order],
         obs_valid=prob.obs_valid[order])
     O = prob.obs_cam.shape[0]
+    # the sums' plans, once per solve (the padding rows, which sort among
+    # point 0's, go to the spare segment, so the keys are sorted again)
+    op = prob.obs_point.long()
+    plan_p = scatter.segment_plan(_sum_index(prob, op, P), P)
+    plan_z = scatter.segment_plan(
+        _sum_index(prob, op * C + prob.obs_cam.long(), P * C), P * C)
 
     def evaluate(pose7, pts, robust, extra_mask):
         R, t = lie.pose7_unpack(pose7)
@@ -303,9 +324,9 @@ def ba_solve(cam: Camera, prob: BAProblem, iters_phase1: int = 5,
                 torch.where(accept, lam * 0.5, lam * 4.0), 1e-9, 1e6))
             pb = prob._replace(cam_pose7=pose_b, points=pts_b)
             Hcc, bc, Hpp, bp = _build_normal_blocks(pb, r_b, Jc_b, Jp_b,
-                                                    w_b, C, P)
+                                                    w_b, C, P, plan_p)
             dxc, dxp = _schur_solve_dense(pb, Hcc, bc, Hpp, bp, Jc_b, Jp_b,
-                                          w_b, prob.cam_free, lam)
+                                          w_b, prob.cam_free, lam, plan_z)
             pose_t, pts_t = _apply_updates(pose_b, pts_b, dxc, dxp,
                                            prob.point_valid)
         # resolve the trailing trial: keep it if it improved the cost
@@ -356,38 +377,54 @@ def ba_solve(cam: Camera, prob: BAProblem, iters_phase1: int = 5,
 # Matrix-free Schur PCG (global BA)
 # ---------------------------------------------------------------------------
 
-def _scatter_rows(n: int, idx: torch.Tensor, vals: torch.Tensor):
-    """`zeros((n,) + vals.shape[1:]).at[idx].add(vals)`."""
-    out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=vals.dtype,
-                      device=vals.device)
-    return out.index_add_(0, idx, vals)
+class ObsSums(NamedTuple):
+    """The segment of every observation in the PCG's camera and point sums
+    (`_sum_index`) and their plans, made once per solve by `obs_sums`."""
+    cam: torch.Tensor
+    point: torch.Tensor
+    cam_plan: scatter.SegmentPlan
+    point_plan: scatter.SegmentPlan
 
 
-def _schur_matvec(x, prob: BAProblem, Jc, Jp, w, Hcc_l, Hpp_inv, psum=None):
+def obs_sums(prob: BAProblem) -> ObsSums:
+    """The `ObsSums` of `prob`."""
+    C, P = prob.cam_pose7.shape[0], prob.points.shape[0]
+    cam = _sum_index(prob, prob.obs_cam, C)
+    point = _sum_index(prob, prob.obs_point, P)
+    return ObsSums(cam, point, scatter.segment_plan(cam, C),
+                   scatter.segment_plan(point, P))
+
+
+def _schur_matvec(x, prob: BAProblem, Jc, Jp, w, Hcc_l, Hpp_inv, psum=None,
+                  sums: ObsSums | None = None):
     """S @ x without materializing S. x: (C, 6). `psum` is the collective
     of the sharded path (applied to the point-space and camera-space
-    partial sums); None on one device."""
+    partial sums); None on one device. `sums`: `obs_sums(prob)` (made here
+    when None)."""
     C = x.shape[0]
     P = Hpp_inv.shape[0]
     oc, op = prob.obs_cam.long(), prob.obs_point.long()
+    if sums is None:
+        sums = obs_sums(prob)
     Jcx = torch.einsum('oij,oj->oi', Jc, x[oc])                   # (O, 3)
-    y = _scatter_rows(P, op, torch.einsum('oij,oi->oj',
-                                          Jp * w[:, None, None], Jcx))
+    y = scatter.segment_sum(P, sums.point, torch.einsum(
+        'oij,oi->oj', Jp * w[:, None, None], Jcx), sums.point_plan)
     if psum is not None:
         y = psum(y)
     z = torch.einsum('pij,pj->pi', Hpp_inv, y)                    # (P, 3)
     Jpz = torch.einsum('oij,oj->oi', Jp, z[op])                   # (O, 3)
-    wc = _scatter_rows(C, oc, torch.einsum('oij,oi->oj',
-                                           Jc * w[:, None, None], Jpz))
+    wc = scatter.segment_sum(C, sums.cam, torch.einsum(
+        'oij,oi->oj', Jc * w[:, None, None], Jpz), sums.cam_plan)
     if psum is not None:
         wc = psum(wc)
     return torch.einsum('cij,cj->ci', Hcc_l, x) - wc
 
 
 def _pcg_lm_step(cam: Camera, prob: BAProblem, carry, cg_iters: int,
-                 robust: bool, psum):
+                 robust: bool, psum, sums: ObsSums):
     """One LM iteration of the matrix-free Schur PCG solver; carry =
-    (cam_pose7, points, lambda). Returns (carry', cost of the trial)."""
+    (cam_pose7, points, lambda); sums = `obs_sums(prob)`. Returns
+    (carry', cost of the trial)."""
     C = prob.cam_pose7.shape[0]
     P = prob.points.shape[0]
     pose7, pts, lam = carry
@@ -401,10 +438,14 @@ def _pcg_lm_step(cam: Camera, prob: BAProblem, carry, cg_iters: int,
         cost = psum(cost)       # accept/reject must agree across shards
     wJc = Jc * w[:, None, None]
     wJp = Jp * w[:, None, None]
-    Hcc = _scatter_rows(C, oc, torch.einsum('oij,oik->ojk', wJc, Jc))
-    bc = _scatter_rows(C, oc, torch.einsum('oij,oi->oj', wJc, r))
-    Hpp = _scatter_rows(P, op, torch.einsum('oij,oik->ojk', wJp, Jp))
-    bp = _scatter_rows(P, op, torch.einsum('oij,oi->oj', wJp, r))
+    Hcc = scatter.segment_sum(C, sums.cam, torch.einsum(
+        'oij,oik->ojk', wJc, Jc), sums.cam_plan)
+    bc = scatter.segment_sum(C, sums.cam, torch.einsum(
+        'oij,oi->oj', wJc, r), sums.cam_plan)
+    Hpp = scatter.segment_sum(P, sums.point, torch.einsum(
+        'oij,oik->ojk', wJp, Jp), sums.point_plan)
+    bp = scatter.segment_sum(P, sums.point, torch.einsum(
+        'oij,oi->oj', wJp, r), sums.point_plan)
     if psum is not None:
         Hcc, bc, Hpp, bp = psum(Hcc), psum(bc), psum(Hpp), psum(bp)
     Hcc_l = Hcc + torch.diag_embed(
@@ -415,7 +456,8 @@ def _pcg_lm_step(cam: Camera, prob: BAProblem, carry, cg_iters: int,
     # rhs = -(bc - Hcp Hpp^-1 bp); gauge: zero rhs of the fixed cameras
     z0 = torch.einsum('pij,pj->pi', Hpp_inv, bp)
     Jpz = torch.einsum('oij,oj->oi', Jp, z0[op])
-    red = _scatter_rows(C, oc, torch.einsum('oij,oi->oj', wJc, Jpz))
+    red = scatter.segment_sum(C, sums.cam, torch.einsum(
+        'oij,oi->oj', wJc, Jpz), sums.cam_plan)
     if psum is not None:
         red = psum(red)
     free = prob.cam_free.to(dt)[:, None]
@@ -427,7 +469,7 @@ def _pcg_lm_step(cam: Camera, prob: BAProblem, carry, cg_iters: int,
 
     def matvec(x):
         return _schur_matvec(x * free, prob, Jc, Jp, w, Hcc_l, Hpp_inv,
-                             psum) * free
+                             psum, sums) * free
 
     def prec(x):
         return torch.einsum('cij,cj->ci', M_inv, x) * free
@@ -452,7 +494,8 @@ def _pcg_lm_step(cam: Camera, prob: BAProblem, carry, cg_iters: int,
         rz = rz_new
     dxc = x * free
     Jcx = torch.einsum('oij,oj->oi', Jc, dxc[oc])
-    yb = _scatter_rows(P, op, torch.einsum('oij,oi->oj', wJp, Jcx))
+    yb = scatter.segment_sum(P, sums.point, torch.einsum(
+        'oij,oi->oj', wJp, Jcx), sums.point_plan)
     if psum is not None:
         yb = psum(yb)
     dxp = -torch.einsum('pij,pj->pi', Hpp_inv, bp + yb)
@@ -480,13 +523,19 @@ def ba_pcg_carry_init(prob: BAProblem):
 
 
 def ba_pcg_chunk(cam: Camera, prob: BAProblem, carry, n_outer: int = 2,
-                 cg_iters: int = 30, robust: bool = True):
+                 cg_iters: int = 30, robust: bool = True,
+                 sums: ObsSums | None = None):
     """Run `n_outer` LM iterations of the matrix-free PCG solver from
     `carry` and return the new carry: the bounded unit of work of the
     abortable global BA (one chunk rides behind each tracked frame;
-    dropping the carry aborts). Nothing in a chunk is read by the host."""
+    dropping the carry aborts). Nothing in a chunk is read by the host.
+    `sums`: `obs_sums(prob)`, made once for all chunks of a solve (made
+    here when None)."""
+    if sums is None:
+        sums = obs_sums(prob)
     for _ in range(n_outer):
-        carry, _ = _pcg_lm_step(cam, prob, carry, cg_iters, robust, None)
+        carry, _ = _pcg_lm_step(cam, prob, carry, cg_iters, robust, None,
+                                sums)
     return carry
 
 
@@ -498,8 +547,10 @@ def ba_solve_pcg(cam: Camera, prob: BAProblem, n_outer: int = 10,
     observations (`parallel.dist_ba.distributed_ba` passes an all-reduce);
     None on one device."""
     carry = ba_pcg_carry_init(prob)
+    sums = obs_sums(prob)
     for _ in range(n_outer):
-        carry, _ = _pcg_lm_step(cam, prob, carry, cg_iters, robust, psum)
+        carry, _ = _pcg_lm_step(cam, prob, carry, cg_iters, robust, psum,
+                                sums)
     pose7, pts, _ = carry
     R, t = lie.pose7_unpack(pose7)
     p = prob._replace(cam_pose7=pose7, points=pts)

@@ -138,10 +138,11 @@ def transform(voc: Vocabulary, desc_packed: torch.Tensor,
 def bow_vector(voc: Vocabulary, words: torch.Tensor,
                valid: torch.Tensor) -> torch.Tensor:
     """(F,) word ids -> L1-normalised tf-idf vector (W,) (reference
-    BowVector::addWeight + normalize(L1)). The tf counts add 1.0 per word;
-    on the card `index_add_` adds with atomics in a varying order, but sums
-    of integers below 2^24 are exact in float32, so the counts, and the
-    vector, equal the reference's."""
+    BowVector::addWeight + normalize(L1)). The tf counts add 1.0 per word
+    with `index_add_`: sums of integers below 2^24 are exact in float32 in
+    any order, so the card's atomics need no fixed order
+    (`scatter.segment_sum`), and the counts, and the vector, equal the
+    reference's."""
     idx = torch.where(valid, words, 0).long()
     tf = torch.zeros((voc.n_words,), dtype=torch.float32,
                      device=words.device).index_add_(

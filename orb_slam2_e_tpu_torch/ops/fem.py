@@ -15,9 +15,10 @@ landmark displacements.
   Jacobians are inverted in closed form (determinant and adjugate):
   `torch.linalg.inv` checks its `info` and can wait for the device.
 - The global K is never formed: a^T K a and K a are computed per element and
-  summed into the nodes with `index_add_`. On the card its atomics add in a
-  varying order, so results agree with the reference within a tolerance, not
-  bit for bit. Padded element rows carry node 0 and add exactly 0.
+  summed into the nodes by `scatter.segment_sum`, in ascending row order on
+  every device (on the card the kernel `csrc/segment_sum.cu`, not atomics),
+  so results repeat bit for bit. Padded element rows carry node 0 and add
+  exactly 0: they go to the spare segment, not to node 0's.
 
 The material is nearly incompressible (lambda ~1.2e5 against G ~1.2e3), so
 a^T K a of a rigid motion is zero only up to float32 cancellation.
@@ -30,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import geometry
+from . import geometry, scatter
 
 # Reference material constants (FEA2 ctor, Optimizer.cc:480)
 YOUNG_E = 3500.0
@@ -344,18 +345,32 @@ def node_positions(mesh: FemMesh, tracked_pts: torch.Tensor) -> torch.Tensor:
 
 
 def _element_vectors(mesh: FemMesh, x: torch.Tensor):
-    """Per-element copies of a nodal field: (idx (Ne, 8) int64, mask
-    (Ne, 24) of the slots that hold a node, xe (Ne, 24))."""
+    """Per-element copies of a nodal field: (mask (Ne, 24) of the slots
+    that hold a node, xe (Ne, 24))."""
     idx = torch.clamp(mesh.elements, min=0).long()
     mask = torch.repeat_interleave(mesh.elements >= 0, 3, dim=1)
-    return idx, mask, torch.where(mask, x[idx].reshape(-1, 24), 0.0)
+    return mask, torch.where(mask, x[idx].reshape(-1, 24), 0.0)
 
 
-def _assemble(mesh: FemMesh, idx, vals):
-    """Sum per-element nodal values (Ne, 24) into the nodes (M, 3)."""
-    M = mesh.u0.shape[0]
-    return torch.zeros((M, 3), dtype=vals.dtype, device=vals.device) \
-        .index_add_(0, idx.reshape(-1), vals.reshape(-1, 3))
+def _node_index(mesh: FemMesh) -> torch.Tensor:
+    """(Ne * 8,) node of each element slot; the spare segment M where the
+    slot holds no node or the element is padding (its values are 0)."""
+    live = (mesh.elements >= 0) & mesh.elem_valid[:, None]
+    return torch.where(live, mesh.elements.long(),
+                       mesh.u0.shape[0]).reshape(-1)
+
+
+def assembly_plan(mesh: FemMesh) -> scatter.SegmentPlan:
+    """The plan of the node sums of `mesh`, for a solve that assembles many
+    times over one mesh."""
+    return scatter.segment_plan(_node_index(mesh), mesh.u0.shape[0])
+
+
+def _assemble(mesh: FemMesh, vals, plan=None):
+    """Sum per-element nodal values (Ne, 24), 0 in the slots of no node and
+    of padded elements, into the nodes (M, 3)."""
+    return scatter.segment_sum(mesh.u0.shape[0], _node_index(mesh),
+                               vals.reshape(-1, 3), plan)
 
 
 def strain_energy(mesh: FemMesh, ke_all: torch.Tensor,
@@ -363,21 +378,22 @@ def strain_energy(mesh: FemMesh, ke_all: torch.Tensor,
     """sE = |a^T K a| via per-element quadratic forms, returned normalized:
     nsE = sE / n_nodes (reference ComputeStrainEnergy +
     NormalizeStrainEnergy, FEA2.cc:1877-1902)."""
-    _, _, ae = _element_vectors(mesh, node_pos - mesh.u0)
+    _, ae = _element_vectors(mesh, node_pos - mesh.u0)
     e = torch.einsum('ei,eij,ej->e', ae, ke_all, ae)
     sE = torch.abs(torch.sum(torch.where(mesh.elem_valid, e, 0.0)))
     return sE / torch.clamp(mesh.n_nodes_active.to(sE.dtype), min=1.0)
 
 
 def stiffness_matvec(mesh: FemMesh, ke_all: torch.Tensor,
-                     x: torch.Tensor) -> torch.Tensor:
+                     x: torch.Tensor, plan=None) -> torch.Tensor:
     """Matrix-free K @ x: per-element gather -> Ke -> scatter-add. The
     reference's FEA2 assembles a dense K and inverts it for its mode-2
-    displacement propagation; the operator form is O(Ne * 24^2)."""
-    idx, mask, xe = _element_vectors(mesh, x)
+    displacement propagation; the operator form is O(Ne * 24^2). `plan`:
+    `assembly_plan(mesh)` (made here when None)."""
+    mask, xe = _element_vectors(mesh, x)
     fe = torch.einsum('eij,ej->ei', ke_all, xe)
     fe = torch.where(mask & mesh.elem_valid[:, None], fe, 0.0)
-    return _assemble(mesh, idx, fe)
+    return _assemble(mesh, fe, plan)
 
 
 def nodal_forces(mesh: FemMesh, ke_all: torch.Tensor,
@@ -387,14 +403,14 @@ def nodal_forces(mesh: FemMesh, ke_all: torch.Tensor,
     return stiffness_matvec(mesh, ke_all, node_pos - mesh.u0)
 
 
-def stiffness_diag(mesh: FemMesh, ke_all: torch.Tensor) -> torch.Tensor:
+def stiffness_diag(mesh: FemMesh, ke_all: torch.Tensor,
+                   plan=None) -> torch.Tensor:
     """diag(K) (M, 3) assembled from element diagonals (the Jacobi
     preconditioner)."""
-    idx = torch.clamp(mesh.elements, min=0).long()
     mask = torch.repeat_interleave(mesh.elements >= 0, 3, dim=1)
     dke = torch.diagonal(ke_all, dim1=1, dim2=2)             # (Ne, 24)
     dke = torch.where(mask & mesh.elem_valid[:, None], dke, 0.0)
-    return _assemble(mesh, idx, dke)
+    return _assemble(mesh, dke, plan)
 
 
 def solve_displacement(mesh: FemMesh, ke_all: torch.Tensor, f: torch.Tensor,
@@ -406,10 +422,11 @@ def solve_displacement(mesh: FemMesh, ke_all: torch.Tensor, f: torch.Tensor,
     inverse (ComputeNewDisplacement, FEA2.cc:1914-1917). Nothing in the
     loop is read by the host. Returns a (M, 3)."""
     free = ~fixed_mask[:, None]                              # (M, 1)
-    dK = torch.clamp(stiffness_diag(mesh, ke_all), min=1e-8)
+    plan = assembly_plan(mesh)
+    dK = torch.clamp(stiffness_diag(mesh, ke_all, plan), min=1e-8)
 
     def A(x):
-        return torch.where(free, stiffness_matvec(mesh, ke_all, x), x)
+        return torch.where(free, stiffness_matvec(mesh, ke_all, x, plan), x)
 
     b = torch.where(free, f, 0.0)
     x = torch.zeros_like(b)

@@ -8,18 +8,21 @@ recovery [R, t/s].
 
 The edge Jacobians are forward-mode derivatives of `_sim3_err`, batched
 over the edges (`torch.func.vmap(torch.func.jacfwd(...))`), as the
-reference's `jax.vmap(jax.jacfwd(...))`. The Hessian blocks are summed with
-`index_put_(accumulate=True)` / `index_add_`: on a GPU their float adds
-come in a varying order, so results agree with the reference within a
-tolerance. The dense path solves one (7K x 7K) system per iteration with
-`linalg.solve_ex`, which does not wait for the device.
+reference's `jax.vmap(jax.jacfwd(...))`. The Hessian blocks and gradients
+are summed by `scatter.segment_sum` over plans made once per solve, in one
+fixed order on every device (ascending edge order, the four block kinds one
+after the other), so a solve repeats bit for bit on the card. Invalid edges
+(weight 0, the padding of the edge capacity) add exact zeros and go to the
+spare segment instead of keyframe 0's. The dense path solves one (7K x 7K)
+system per iteration with `linalg.solve_ex`, which does not wait for the
+device.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import lie
+from . import lie, scatter
 
 
 def _sim3_err(xi_i, xi_j, Si8, Sj8, Mij8):
@@ -99,18 +102,25 @@ def optimize_pose_graph(sim8: torch.Tensor, kf_valid: torch.Tensor,
     free = (kf_valid & ~fixed).to(dt)
     eye7 = torch.eye(7, dtype=dt, device=dev)
     ar = torch.arange(K, device=dev)
+    # the (a, b) blocks of the four kinds as one flat index a * K + b, and
+    # the gradient's two ends, each summed in one pass
+    live = edge_valid.bool()
+    h_idx = torch.where(live.repeat(4), torch.cat(
+        [ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei]), K * K)
+    g_idx = torch.where(live.repeat(2), torch.cat([ei, ej]), K)
+    h_plan = scatter.segment_plan(h_idx, K * K)
+    g_plan = scatter.segment_plan(g_idx, K)
 
     def solve_step(r, Ji, Jj, lam):
         wJi = Ji * w[:, None, None]
         wJj = Jj * w[:, None, None]
-        H = torch.zeros((K, K, 7, 7), dtype=dt, device=dev)
-        for a, b, wJa, Jb in ((ei, ei, wJi, Ji), (ej, ej, wJj, Jj),
-                              (ei, ej, wJi, Jj), (ej, ei, wJj, Ji)):
-            H.index_put_((a, b), torch.einsum('eij,eik->ejk', wJa, Jb),
-                         accumulate=True)
-        g = torch.zeros((K, 7), dtype=dt, device=dev)
-        g.index_add_(0, ei, torch.einsum('eij,ei->ej', wJi, r))
-        g.index_add_(0, ej, torch.einsum('eij,ei->ej', wJj, r))
+        H = scatter.segment_sum(K * K, h_idx, torch.cat([
+            torch.einsum('eij,eik->ejk', wJa, Jb)
+            for wJa, Jb in ((wJi, Ji), (wJj, Jj), (wJi, Jj), (wJj, Ji))]),
+            h_plan).reshape(K, K, 7, 7)
+        g = scatter.segment_sum(K, g_idx, torch.cat([
+            torch.einsum('eij,ei->ej', wJi, r),
+            torch.einsum('eij,ei->ej', wJj, r)]), g_plan)
         Hf = H * free[:, None, None, None] * free[None, :, None, None]
         Hf[ar, ar] += (1.0 - free)[:, None, None] * eye7 + lam * eye7
         gf = g * free[:, None]
@@ -136,10 +146,12 @@ def optimize_pose_graph_cg(sim8: torch.Tensor, kf_valid: torch.Tensor,
     free = (kf_valid & ~fixed).to(dt)
     eye7 = torch.eye(7, dtype=dt, device=dev)
     zero = torch.zeros((), dtype=dt, device=dev)
+    both = torch.where(edge_valid.bool().repeat(2), torch.cat([ei, ej]), K)
+    plan = scatter.segment_plan(both, K)
 
     def scatter2(vi, vj):
-        out = torch.zeros((K,) + tuple(vi.shape[1:]), dtype=dt, device=dev)
-        return out.index_add_(0, ei, vi).index_add_(0, ej, vj)
+        """Sum of the rows of vi into ei and of vj into ej, in that order."""
+        return scatter.segment_sum(K, both, torch.cat([vi, vj]), plan)
 
     def solve_step(r, Ji, Jj, lam):
         wJi = Ji * w[:, None, None]

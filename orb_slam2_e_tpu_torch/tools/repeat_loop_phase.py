@@ -6,8 +6,8 @@ on one card, with every closure's fusion run again on the CPU.
 
 runs `chip_smoke.run_loop(seed)` for every seed given (from the repository
 root, where `chip_smoke.py` lies). The scene and the trajectory are the
-same each time: what varies is the Sim3 RANSAC draw and the order of the
-card's atomic adds. Each run prints the phase's own lines (frame of the
+same each time: what varies is the Sim3 RANSAC draw (the float sums add in
+one fixed order, so a seed given twice repeats its run). Each run prints the phase's own lines (frame of the
 closure, rejections, ATE, stage ms, and a line per Sim3 attempt with its
 `compute_sim3` inliers `n_in`, `verify_sim3`'s inliers `n_in2` and
 projected matches `n_total` where it got that far, and the landmarks
