@@ -21,6 +21,7 @@ from ..ops import lie, matching, twoview, ba, scatter
 from ..ops.camera import Camera
 from ..ops import camera as cam_ops
 from ..ops.orb import top_k
+from ..utils import trace
 from .frame import scale_invsigma2
 from .map_state import MapState, INVALID
 
@@ -484,18 +485,24 @@ def mapping_pass(cam: Camera, cfg: MappingConfig, state: MapState, kf,
     local BA -> keyframe culling for one new keyframe (reference
     LocalMapping::Run body). Returns (state, (n_culled, n_new,
     victims (N_CULL_VICTIMS,), clip_bits))."""
-    state, n_culled = cull_map_points(cfg, state, kf)
-    state, n_new = triangulate_with_neighbors(cam, cfg, state, kf)
-    state, _, clip_fuse = fuse_neighbors(cam, cfg, state, kf)
-    state = refresh_landmarks(cfg, state, kf)
+    with trace.span("map.cull_points"):
+        state, n_culled = cull_map_points(cfg, state, kf)
+    with trace.span("map.triangulate"):
+        state, n_new = triangulate_with_neighbors(cam, cfg, state, kf)
+    with trace.span("map.fuse"):
+        state, _, clip_fuse = fuse_neighbors(cam, cfg, state, kf)
+    with trace.span("map.refresh"):
+        state = refresh_landmarks(cfg, state, kf)
     clipped = clip_fuse << 3
     if do_ba:
-        state, _, clip_ba = local_ba(cam, cfg, state, kf)
+        with trace.span("map.local_ba"):
+            state, _, clip_ba = local_ba(cam, cfg, state, kf)
         clipped = clipped | clip_ba
     victims = torch.full((N_CULL_VICTIMS,), INVALID, dtype=_I32,
                          device=state.device)
     if do_cull_kf:
-        state, victims = cull_keyframes(cfg, state, kf)
+        with trace.span("map.cull_kf"):
+            state, victims = cull_keyframes(cfg, state, kf)
     return state, (n_culled, n_new, victims, clipped)
 
 
@@ -540,8 +547,11 @@ def cull_keyframes(cfg: MappingConfig, state: MapState, kf):
         ratio = redundant.sum(1) / torch.clamp(n_pts, min=1)
         score = torch.where(cand_mask & (n_pts > 0), ratio.to(torch.float32),
                             torch.zeros_like(ratio, dtype=torch.float32))
-        victim = int(torch.argmax(score))
-        if not bool(score[victim] > 0.9):
+        with trace.span("wait.cull_kf"):
+            victim = int(torch.argmax(score))
+        with trace.span("wait.cull_kf"):
+            redundant = bool(score[victim] > 0.9)
+        if not redundant:
             victims.append(INVALID)
             continue
         vic_parent = state.kf_parent[victim]

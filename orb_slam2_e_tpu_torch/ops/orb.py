@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from . import kernels
+from ..utils import trace
 
 HALF_PATCH = 15
 EDGE_THRESHOLD = 19
@@ -318,7 +319,8 @@ class OrbExtractor:
 
     def __call__(self, image: torch.Tensor) -> OrbFeatures:
         """image: (H, W) uint8 or float32 grayscale tensor."""
-        return self._extract(image)
+        with trace.span("extract.orb"):
+            return self._extract(image)
 
     def _pyramid(self, images: torch.Tensor) -> list:
         """The levels of (..., H, W) images, each resized from level 0, so

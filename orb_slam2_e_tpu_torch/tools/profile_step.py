@@ -18,7 +18,10 @@ per frame it prints the kernel launches, the copies, the synchronizing CUDA
 calls (`cudaStreamSynchronize`, `cudaDeviceSynchronize`,
 `cudaEventSynchronize`), the device-busy time (the union of the device
 intervals, so overlapping kernels count once) and its share of the frame
-time, and the ten host functions with most self time. The profiler slows
+time, one row per span of the program's own stages (`utils/trace.py`,
+recorded while the profiler runs: calls, host ms and self ms per frame, and
+the launches and synchronizing calls issued inside), and the ten host
+functions with most self time. The profiler slows
 the host several times over (about 6 s a frame where 0.7 s is the rate), so
 the share is taken against the wall time of the frames just before, run
 without it; reading the trace takes a few minutes more. On the CPU there
@@ -36,6 +39,7 @@ them.
 from __future__ import annotations
 
 import argparse
+import bisect
 import statistics
 import subprocess
 import time
@@ -49,10 +53,13 @@ from ..models.system import Sensor, SlamSystem, SystemConfig, TrackState
 from ..ops import kernels
 from ..ops import orb as orb_mod
 from ..ops.camera import Camera
+from ..utils import trace
 from ..utils.synthetic import SyntheticScene, orbit_trajectory
 
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernelEx")
 # the benchmark's size (bench.py's monocular capacities), and a small one
 FULL = dict(width=640, height=480, features=1000, levels=8, frames=20,
             max_keyframes=64, max_points=16384, reps=10, profiled_frames=10)
@@ -101,18 +108,49 @@ def _union_us(intervals) -> float:
     return busy
 
 
+def _count_inside(times, intervals) -> int:
+    """How many of the sorted `times` lie in the union of `intervals`."""
+    merged = []
+    for s, e in sorted(intervals):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return sum(bisect.bisect_right(times, e) - bisect.bisect_left(times, s)
+               for s, e in merged)
+
+
+def span_rows(n_frames: int, launches_us, syncs_us) -> list:
+    """One row per program span name recorded so far: (name, calls, host
+    ms, self ms, launches, syncs inside), each per frame, by name (a layer
+    before its stages). `launches_us` / `syncs_us`: the sorted start times
+    of the host's launch and synchronizing calls, on the profiler's
+    clock."""
+    recs = [s for s in trace.spans() if s.t1_ns is not None]
+    rows = []
+    for name, (calls, total, own) in sorted(trace.summary().items()):
+        iv = [(s.t0_ns / 1e3, s.t1_ns / 1e3) for s in recs if s.name == name]
+        rows.append((name, calls / n_frames, total / n_frames,
+                     own / n_frames,
+                     _count_inside(launches_us, iv) / n_frames,
+                     _count_inside(syncs_us, iv) / n_frames))
+    return rows
+
+
 def profile_frames(step, n_frames: int, device: torch.device,
                    host_top: int = 10) -> dict:
     """Run `step(i)` for i < n_frames under torch.profiler. Returns the
     per-frame counts and the busy share, read from the profiler's raw
-    events, and the `host_top` host functions with most self time (0: none;
-    they need the profiler's full event tree, whose building takes about
-    40 s for one frame of 40,000 launches)."""
+    events, the program's spans of the frames (`span_rows`), and the
+    `host_top` host functions with most self time (0: none; they need the
+    profiler's full event tree, whose building takes about 40 s for one
+    frame of 40,000 launches)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
         torch.cuda.synchronize(device)
+    trace.clear()
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
         for i in range(n_frames):
@@ -120,15 +158,17 @@ def profile_frames(step, n_frames: int, device: torch.device,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels_n = copies_n = syncs_n = 0
-    dev_intervals = []
+    kernels_n = copies_n = 0
+    dev_intervals, launches_us, syncs_us = [], [], []
     # the events the profiler's own tree is built from, with its filter
     for ev in prof.profiler.kineto_results.events():
         if getattr(ev, "is_hidden_event", lambda: False)():
             continue
         if ev.device_type() == torch.autograd.DeviceType.CPU:
             if ev.name() in SYNC_CALLS:
-                syncs_n += 1
+                syncs_us.append(ev.start_ns() / 1e3)
+            elif ev.name() in LAUNCH_CALLS:
+                launches_us.append(ev.start_ns() / 1e3)
             continue
         dev_intervals.append((ev.start_ns() / 1e3, ev.end_ns() / 1e3))
         if ev.name().startswith(("Memcpy", "Memset")):
@@ -145,9 +185,10 @@ def profile_frames(step, n_frames: int, device: torch.device,
         "wall_ms": wall_ms / n_frames,
         "launches": kernels_n / n_frames,
         "copies": copies_n / n_frames,
-        "syncs": syncs_n / n_frames,
+        "syncs": len(syncs_us) / n_frames,
         "busy_ms": _union_us(dev_intervals) / 1e3 / n_frames,
         "device_events": len(dev_intervals),
+        "spans": span_rows(n_frames, sorted(launches_us), sorted(syncs_us)),
         "host": [(ms / n_frames, cnt / n_frames, name)
                  for ms, cnt, name in host],
     }
@@ -327,6 +368,13 @@ def main(argv=None):
              if p["device_events"] else "not measured")
     print(f"  device busy per frame: {p['busy_ms']:.2f} ms, share {share}")
     print(f"  fast_nms_blur launches: {kernels.fast_nms_blur.launches}")
+    print("  program spans (per frame: calls, host ms, self ms, launches "
+          "and synchronizing calls inside):")
+    print(f"    {'span':20s} {'calls':>6s} {'host ms':>9s} {'self ms':>9s} "
+          f"{'launches':>9s} {'syncs':>7s}")
+    for name, calls, total, own, n_launch, n_sync in p["spans"]:
+        print(f"    {name:20s} {calls:6.1f} {total:9.2f} {own:9.2f} "
+              f"{n_launch:9.1f} {n_sync:7.1f}")
     print("  host functions by self time (ms per frame, calls per frame):")
     for ms_f, cnt, name in p["host"]:
         print(f"    {ms_f:9.3f} {cnt:9.1f}  {name}")

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import trace
+
 
 def rectify_map(K: np.ndarray, D: np.ndarray, R: np.ndarray, P: np.ndarray,
                 width: int, height: int) -> np.ndarray:
@@ -73,5 +75,6 @@ class StereoRectifier:
     def __call__(self, img_left, img_right):
         def f32(im):
             return torch.as_tensor(im, device=self.device).to(torch.float32)
-        return (remap_bilinear(f32(img_left), self.map_l),
-                remap_bilinear(f32(img_right), self.map_r))
+        with trace.span("rectify"):
+            return (remap_bilinear(f32(img_left), self.map_l),
+                    remap_bilinear(f32(img_right), self.map_r))

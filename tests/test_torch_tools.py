@@ -75,6 +75,16 @@ def test_profile_step_pipelined(capsys):
     assert lines[1].endswith("pipelined loop")
     assert int(lines[2].split()[1]) >= 2
     assert any(ln.startswith("profile over 2 steady frames") for ln in lines)
+    # the program's spans: the table's header, then a row per span name
+    head = lines.index("  program spans (per frame: calls, host ms, self "
+                       "ms, launches and synchronizing calls inside):")
+    assert lines[head + 1].split() == ["span", "calls", "host", "ms", "self",
+                                       "ms", "launches", "syncs"]
+    rows = {ln.split()[0]: [float(v) for v in ln.split()[1:]]
+            for ln in lines[head + 2:] if re.fullmatch(
+                r"    [a-z_.]+( +\d+\.\d+){5}", ln)}
+    assert rows["frame"][0] == 1.0 and rows["track.pose_lm"][0] == 3.0
+    assert rows["frame"][1] >= rows["track"][1] > 0
 
 
 def test_busy_union_counts_overlap_once():
