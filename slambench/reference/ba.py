@@ -8,6 +8,10 @@ Marquardt's diagonal damping (1e-4, halved on a step that lowers the cost,
 times four on one that does not). The schedule is the one the configured
 system runs (3 robust and 4 plain iterations, and the gross-outlier gate
 at the start: 32 times the chi-square threshold or 25 times the median).
+A free keyframe with no live observation in a step (its observations
+gated out, behind it, or clipped from the program's problem by its
+capacity) leaves its block of the reduced camera system zero: it is held
+in that step, since the cost does not depend on it.
 
 The window (which keyframes are free, which are held, which landmarks and
 observations it holds) is read from the problem the program built; the
@@ -86,7 +90,6 @@ def _lm_phase(cam, w: Window, state, lam, n_iters, robust, gate, dtype):
     fx, fy = cam[0], cam[1]
     bf = cam[4]
     inv_s2 = w.inv_s2.to(dtype)
-    free = torch.nonzero(w.free).flatten()
 
     def evaluate(R, t, X):
         c2, front = chi2(cam, w, R, t, X)
@@ -138,6 +141,11 @@ def _lm_phase(cam, w: Window, state, lam, n_iters, robust, gate, dtype):
         S[ar, ar] += Hcc + lam * torch.diag_embed(
             Hcc.diagonal(dim1=1, dim2=2))
         rhs = -bc + torch.einsum("cpij,pj->ci", V, bp)
+        # a free keyframe with no live observation in this step has a zero
+        # block and row in S (the cost does not depend on it): it stays
+        seen = torch.zeros(C, dtype=torch.bool, device=dev)
+        seen[w.oc[wo != 0]] = True
+        free = torch.nonzero(w.free & seen).flatten()
         Sf = S[free][:, free].permute(0, 2, 1, 3).reshape(
             6 * len(free), 6 * len(free))
         dxc = torch.zeros(C, 6, dtype=solve_dt, device=dev)

@@ -2,7 +2,10 @@
 the benchmark's own scene: the frozen copies must give what the program
 gives bit for bit (the program's CUDA kernel is bit-equal to its plain
 twin, which the CPU runs), and the bfloat16 control must not; the plain
-local BA on a synthetic window of known truth."""
+local BA on synthetic windows of known truth and on a window saved from a
+run on the card."""
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -174,7 +177,91 @@ def test_shortfall_of_the_bfloat16_control_is_high():
     assert ba.shortfall(cam, [w], control=True) > 0.1
 
 
+# a local BA of the program in a 210 s run of `euroc_stereo.mh_sweep` on
+# the card (seed 2147485350, during frame 110): its problem, its start and
+# the map the mapping pass left. Its 12,288 observations fill the
+# problem's capacity before the last of its 16 free keyframes
+SAVED = Path(__file__).parent / "data" / "mh_sweep_window_2147485350_f110.pt"
+
+
+@pytest.fixture(scope="module")
+def saved():
+    d = torch.load(SAVED)
+    return tuple(d["cam"]), d
+
+
+def _saved_window(d):
+    return ba.Window(d["prob"], d["start"], d["result"], "cpu")
+
+
+def test_saved_window_solves_and_holds_the_unobserved_keyframe(saved):
+    cam, d = saved
+    w = _saved_window(d)
+    seen = torch.bincount(w.oc[w.valid], minlength=w.free.shape[0]) > 0
+    assert int(w.valid.sum()) == w.valid.shape[0] == 12288
+    assert (w.free & ~seen).nonzero().flatten().tolist() == [15]
+    (R, t, X), inliers = ba.local_ba(cam, w)
+    assert torch.equal(R[15], w.start[0][15])
+    assert torch.equal(t[15], w.start[1][15])
+    moved = (t[:15] - w.start[1][:15]).abs().amax(-1)
+    assert bool((moved > 0).all())
+    assert ba.cost(cam, w, (R, t, X)) < ba.cost(cam, w, w.start)
+    short = ba.shortfall(cam, [w])
+    # 1.5e-4 on an x86 CPU, 0.1 the cell's limit
+    assert np.isfinite(short) and 0.0 <= short < 1e-3
+
+
+def test_control_over_the_saved_window_is_high(saved):
+    cam, d = saved
+    # 38.07 on an x86 CPU, 0.1 the cell's limit
+    assert ba.shortfall(cam, [_saved_window(d)], control=True) > 1.0
+
+
 def test_match_rows_finds_bit_equal_rows():
     table = torch.tensor([[1.0, 2.0], [3.0, 4.0], [5.0, 6.0]])
     rows = torch.tensor([[5.0, 6.0], [1.0, 2.0], [7.0, 8.0]])
     assert ba.match_rows(table, rows).tolist() == [2, 0, -1]
+
+
+@pytest.mark.parametrize("kind", ["clipped", "gated"])
+def test_free_keyframe_without_live_observation_is_held(kind):
+    """A free keyframe whose observations are all left out of the problem
+    (the program's observation capacity), or all gross outliers, has a zero
+    block in the reduced camera system at every step: the reference holds
+    it where it once found the system singular, and solves the rest."""
+    cam, w, truth = _ba_window(0.01)
+    off = w.oc == 3
+    if kind == "clipped":
+        w.valid = w.valid & ~off
+    else:
+        w.uvr = w.uvr + 300.0 * off[:, None] * torch.tensor(
+            [1.0, 0.0, 1.0], dtype=torch.float64)
+    (R, t, X), inliers = ba.local_ba(cam, w)
+    assert torch.equal(R[3], w.start[0][3]) and torch.equal(t[3],
+                                                            w.start[1][3])
+    assert not bool(inliers[off].any())
+    assert float((t[1:3] - truth[1][1:3]).abs().max()) < 1e-9
+    assert ba.shortfall(cam, [w]) == pytest.approx(0.0, abs=1e-6)
+    assert ba.shortfall(cam, [w], control=True) > 0.1
+
+
+# the pre-repair reference's readings of two regular windows (every free
+# keyframe observed), as float.hex: the repair must leave them bit-equal
+REGULAR = {"exact": ("0x1.08fb252fa0000p-61", "0x1.a2c7fd41cf4cep-2",
+                     "0x1.5173543b82fe9p-2"),
+           "noisy": ("0x1.b58e56a091cd6p+8", None, "0x1.42497151a730cp-2")}
+
+
+@pytest.mark.parametrize("name", sorted(REGULAR))
+def test_regular_window_reads_as_before_the_repair(name):
+    cam, w, truth = _ba_window(0.01)
+    if name == "noisy":
+        g = torch.Generator().manual_seed(1)
+        w.uvr = w.uvr + 0.5 * torch.randn(w.uvr.shape, generator=g,
+                                          dtype=torch.float64)
+    c_ref, mid, control = REGULAR[name]
+    assert ba.cost(cam, w, ba.local_ba(cam, w)[0]).hex() == c_ref
+    assert ba.shortfall(cam, [w], control=True).hex() == control
+    if mid is not None:
+        w.result = tuple(0.5 * (a + b) for a, b in zip(w.start, truth))
+        assert ba.shortfall(cam, [w]).hex() == mid
