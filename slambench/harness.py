@@ -130,6 +130,7 @@ class Hooks:
         self.spans = defaultdict(list)
         self.calls = defaultdict(int)    # calls per span, in every mode
         self.recording = False
+        self.paused = 0.0                # seconds in `profile_first` sessions
         self._installed = []
 
     def sync(self):
@@ -187,6 +188,43 @@ class Hooks:
         setattr(owner, attr, wrapper)
         return calls
 
+    def profile_first(self, owner, attr: str, n: int, calls: list) -> list:
+        """Replace `owner.attr` by a wrapper that runs each of its first `n`
+        calls made while `capturing` inside a torch.profiler session of its
+        own, the device synchronized on both sides, `recording` on and every
+        span quiet (mode "off": such a call is no sample of its span). The
+        list returned gets one (profile, calls, seconds) per session: the
+        closed profiler, whose events are read later; what `calls` (a list
+        that `record` fills) took in during the session, which empties it;
+        and the session's wall seconds, its start and stop included, which
+        `paused` adds up."""
+        fn = getattr(owner, attr)
+        sessions = []
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not self.capturing or len(sessions) >= n:
+                return fn(*args, **kwargs)
+            mode, recording = self.mode, self.recording
+            self.mode, self.recording = "off", True
+            t0 = time.perf_counter()
+            try:
+                self.sync()
+                with _profile() as prof:
+                    out = fn(*args, **kwargs)
+                    self.sync()
+            finally:
+                self.mode, self.recording = mode, recording
+            dt = time.perf_counter() - t0
+            self.paused += dt
+            sessions.append((prof, list(calls), dt))
+            calls.clear()
+            return out
+
+        self._installed.append((owner, attr, owner.__dict__.get(attr)))
+        setattr(owner, attr, wrapper)
+        return sessions
+
     def remove(self):
         for owner, attr, old in reversed(self._installed):
             if old is None:
@@ -204,7 +242,29 @@ class Trace:
         self.events = None       # reference.trace.Events of the stretch
         self.stretch = {}        # frames, wall_s, t0_us, t1_us
         self.fast_nms_blur_bounds_s = []
-        self.segment_sum_bounds_s = []
+        # (Events, segment_sum bounds [s]) of each mapping pass profiled in
+        # a session of its own at the window's start
+        self.captures = []
+
+
+def _profile():
+    """A torch.profiler session of host and device activity, after which
+    the device tracer (CUPTI) is torn down (`TEARDOWN_CUPTI=1`): left
+    attached, it slowed every later frame of the port by a quarter or more
+    on the H100."""
+    from torch.profiler import ProfilerActivity, profile
+    os.environ["TEARDOWN_CUPTI"] = "1"
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def warm_profiler(hooks: Hooks):
+    """Open and close one profiler session around a single device op, so
+    that the device tracer's one-off start (seconds on the card) falls in
+    set-up rather than in the first session that measures."""
+    import torch
+    with _profile():
+        torch.ones(1, device=hooks.device).add_(1)
+        hooks.sync()
 
 
 def profile_stretch(step, more, hooks: Hooks):
@@ -212,12 +272,10 @@ def profile_stretch(step, more, hooks: Hooks):
     with the hooks annotating. Returns (Events, steps run, wall seconds,
     first and last host microsecond of the stretch)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from .reference.trace import Events
     hooks.sync()
     hooks.mode = "annotate"
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+    with _profile() as prof:
         with torch.profiler.record_function("slambench.stretch"):
             t0 = time.perf_counter()
             i = 0

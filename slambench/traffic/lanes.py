@@ -104,7 +104,7 @@ def run(ctx) -> dict:
     if ctx.trace:
         trace = harness.Trace()
         trace.spans = {k: list(v) for k, v in hooks.spans.items()}
-        blur, seg = record_kernels(hooks)
+        blur = record_kernels(hooks)
         first = step
         hooks.recording = True
         ev, n_prof, wall, a, b = harness.profile_stretch(
@@ -115,7 +115,7 @@ def run(ctx) -> dict:
         trace.events = ev
         trace.stretch = {"frames": n_prof * B, "wall_s": wall, "t0_us": a,
                          "t1_us": b}
-        kernel_bounds(blur, seg, trace)
+        kernel_bounds(blur, trace)
 
     memory_peak = (torch.cuda.max_memory_allocated(dev)
                    if dev.type == "cuda" else 0)

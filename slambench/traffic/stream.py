@@ -5,11 +5,15 @@ recorded sequence is processed).
 Set-up renders one period of the mix's motion, builds the system and runs
 the mix's `setup_frames` (initialization and the first keyframes). The
 window continues the sequence for the run's seconds and ends with the
-pipelined loop drained and the device synchronized. A traced run then
-profiles `profile_frames` more frames. Frames up to the cell's
-`ate_frames` that the window did not reach run untimed after it, so that
-the ATE does not depend on speed. Then the program's state is freed and
-the reference checks what the window produced.
+pipelined loop drained and the device synchronized. In a traced run
+set-up ends with one short profiler session, which pays the device
+tracer's start; the window's first `CAPTURES` mapping passes each run
+inside a profiler session of their own, at the same keyframes whatever the
+port's speed, and the window runs on for as long as they took; and
+`profile_frames` more frames are profiled after the window. Frames up to
+the cell's `ate_frames` that the window did not reach run untimed after
+it, so that the ATE does not depend on speed. Then the program's state is
+freed and the reference checks what the window produced.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from .. import harness
 from ..reference import ba as ref_ba
 from ..reference import check, geometry
 from ..reference import stereo as ref_stereo
+from ..reference.trace import Events
 from ..scenes.sequences import Sequence
 
 
@@ -98,27 +103,40 @@ def install_hooks(hooks, slam, on_track, on_insert, bas):
                idle=lambda when: when == "before" and slam._gba is None)
 
 
+# mapping passes profiled at the window's start in a traced run (the first
+# calls of `SlamSystem._super_insert` after the set-up frames)
+CAPTURES = 3
+
+
 def record_kernels(hooks):
-    """The argument lists of the two CUDA kernels' entry points while
+    """The argument lists of the extraction kernel's entry point while
     `hooks.recording`."""
-    from orb_slam2_e_tpu_torch.ops import kernels, scatter
-    return (hooks.record(kernels, "fast_nms_blur_batch"),
-            hooks.record(scatter, "segment_sum"))
+    from orb_slam2_e_tpu_torch.ops import kernels
+    return hooks.record(kernels, "fast_nms_blur_batch")
 
 
-def kernel_bounds(blur, seg, trace):
-    """Each recorded launch's least time from its inputs (reference)."""
+def kernel_bounds(blur, trace):
+    """Each recorded extraction launch's least time from its inputs
+    (reference)."""
     from ..reference import roofline
     for lanes, th_high, th_low in blur:
         levels = [img for lane in lanes for img in lane]
         trace.fast_nms_blur_bounds_s.append(roofline.fast_nms_blur_bound_s(
             roofline.fast_nms_blur_counts(levels, th_high, th_low)))
+
+
+def segment_sum_bounds(seg) -> list:
+    """Each recorded segment sum's least time from its inputs (reference);
+    a sum into no segment launches nothing."""
+    from ..reference import roofline
+    out = []
     for n, idx, vals, *_ in seg:
         if n == 0:
             continue
         cols = int(vals.numel() // max(int(vals.shape[0]), 1))
-        trace.segment_sum_bounds_s.append(roofline.segment_sum_bound_s(
+        out.append(roofline.segment_sum_bound_s(
             n, cols, roofline.live_rows(idx, n)))
+    return out
 
 
 def run(ctx) -> dict:
@@ -153,6 +171,12 @@ def run(ctx) -> dict:
 
     bas = []
     install_hooks(hooks, slam, on_track, on_insert, bas)
+    if ctx.trace:
+        from orb_slam2_e_tpu_torch.ops import scatter
+        # (the profiled stretch records segment sums too; only the
+        # sessions' calls are read)
+        seg = hooks.record(scatter, "segment_sum")
+        captures = hooks.profile_first(slam, "_super_insert", CAPTURES, seg)
     rects = {}
 
     def feed(f):
@@ -174,6 +198,9 @@ def run(ctx) -> dict:
     slam.get_trajectory()
     hooks.sync()
     marks.append(("setup frames", time.perf_counter()))
+    if ctx.trace:
+        harness.warm_profiler(hooks)
+        marks.append(("profiler", time.perf_counter()))
     harness.log_setup(ctx.t_start, marks)
 
     # ---- the window
@@ -187,7 +214,9 @@ def run(ctx) -> dict:
         handins.append(time.perf_counter())
         feed(f)
         f += 1
-        if time.perf_counter() - t0 >= ctx.seconds:
+        # a traced run's window leaves its profiled mapping passes out of
+        # its seconds, so that it reaches as far as an untraced one
+        if time.perf_counter() - t0 - hooks.paused >= ctx.seconds:
             break
     slam.get_trajectory()          # the pipelined loop drained
     hooks.sync()
@@ -202,7 +231,12 @@ def run(ctx) -> dict:
     if ctx.trace:
         trace = harness.Trace()
         trace.spans = {k: list(v) for k, v in hooks.spans.items()}
-        blur, seg = record_kernels(hooks)
+        trace.captures = [(Events.from_profiler(prof),
+                           segment_sum_bounds(calls))
+                          for prof, calls, _ in captures]
+        capture_s = [dt for *_, dt in captures]
+        del captures, seg
+        blur = record_kernels(hooks)
         first, kf0 = f, hooks.calls["map"]
         lo, hi = mix["profile_frames"]
         hooks.recording = True
@@ -218,7 +252,7 @@ def run(ctx) -> dict:
         trace.events = ev
         trace.stretch = {"frames": n_prof, "wall_s": wall, "t0_us": a,
                          "t1_us": b}
-        kernel_bounds(blur, seg, trace)
+        kernel_bounds(blur, trace)
 
     while f < cell["ate_frames"]:
         feed(f)
@@ -253,11 +287,14 @@ def run(ctx) -> dict:
     control = (judge(ctx, seq, frames, rects, inserts, windows, window,
                      tracked_f, True) if ctx.control else None)
 
+    info = {"ate_mm": ate_mm, "keyframes_per_100": kf_per_100}
+    if ctx.trace:
+        info["capture_s"] = capture_s
     e2e = {"frames_per_s": len(handins) / (t_end - t0),
            "frame_ms_p90": harness.percentile(frame_ms, 90),
            "setup_s": setup_s}
     return {"end_to_end": e2e,
-            "info": {"ate_mm": ate_mm, "keyframes_per_100": kf_per_100},
+            "info": info,
             "attempted": len(handins), "failed": failed,
             "memory_peak_bytes": int(memory_peak), "numbers": numbers,
             "control_numbers": control, "trace": trace}
